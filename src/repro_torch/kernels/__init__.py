@@ -1,0 +1,16 @@
+"""Hand-written Hopper kernels for CubeGraph's hot loops, each beside its
+plain PyTorch twin.
+
+- ``filtered_topk`` fused distance + spatio-temporal predicate + exact
+                    top-k (kernel B1, ``csrc/filtered_topk.cu``)
+- ``distance``      tiled pairwise distance matrix (kernel B2,
+                    ``csrc/distance.cu``)
+- ``ref``           plain PyTorch oracles
+- ``ops``           public wrappers: filter encoding, device placement,
+                    dispatch
+"""
+from .ops import (PAD_META, encode_filter, exact_filtered_search,
+                  filtered_topk, next_pow2, pairwise_dist, round_up)
+
+__all__ = ["PAD_META", "encode_filter", "exact_filtered_search",
+           "filtered_topk", "next_pow2", "pairwise_dist", "round_up"]

@@ -1,0 +1,540 @@
+"""Segment lifecycle: seal policy, off-path compaction, TTL/retention expiry.
+
+``SegmentManager`` owns the delta buffer, the ordered list of sealed
+segments, a per-gid liveness bitmap, and a chunked :class:`PointStore`
+ledger (off the query hot path, garbage-collected chunk-wise as points
+retire).
+
+Lifecycle (all event-time — "now" is the max timestamp ingested so far,
+so replayed histories behave identically to live streams)::
+
+  ingest -> delta buffer -> [seal policy] -> sealed CubeGraphIndex segment
+         -> [compaction]  -> merged/GC'd segments
+         -> [retention]   -> whole-segment O(1) drop
+
+Compaction consistency (the epoch guarantee)
+--------------------------------------------
+Compaction is split into ``plan`` (cheap, under the manager lock) /
+``execute`` (expensive index rebuilds, lock-free, off-thread via
+:meth:`SegmentManager.compact_async`) / ``publish`` (atomic swap under the
+lock).  Every mutation of the segment *list* bumps ``epoch``; queries take
+a snapshot ``(epoch, segments)`` under the lock and run entirely against
+it, so an in-flight query never observes a half-merged list.  At publish
+time, deletions that landed while a replacement segment was being built
+are re-applied to it before the swap, and the query path additionally
+filters its merged result through the liveness bitmap — so a point deleted
+before a query began is never returned.
+
+This port covers the default configuration (``n_shards=0``,
+``read_path="scan"``, no quantization, no device budget, no persistence);
+the options of later slices raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import threading
+import time
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..core import CubeGraphConfig, Filter
+from ..device import resolve_device
+from .segments import DeltaBuffer, PointStore, SealedSegment, grow_rows
+
+__all__ = ["CompactionPlan", "StreamConfig", "SegmentManager"]
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamConfig:
+    """Policy knobs for the streaming lifecycle (the reference's fields and
+    defaults; see ``SegmentManager`` for which options are ported)."""
+
+    time_dim: int = -1                    # metadata column holding time
+    seal_max_points: int = 2048           # seal delta at this many live points
+    seal_max_age: float = math.inf        # ... or when its span exceeds this
+    # Retention is segment-granular for sealed data: a segment drops (O(1))
+    # only once its *entire* span [t_min, t_max] is older than now - ttl, so
+    # a straddling segment retains its older points until it ages out or is
+    # compacted.  Delta-buffer stragglers are masked point-wise.
+    ttl: float = math.inf
+    compact_max_segments: int = 8         # merge adjacent pairs above this
+    compact_deleted_fraction: float = 0.3  # GC a segment above this
+    # Sealed-segment read path: 0 = per-segment stitched-graph beam search;
+    # >= 1 = the sharded kernel scan (not ported yet).
+    n_shards: int = 0
+    incremental_pack: bool = True
+    pack_cap_multiple: int = 256          # bucket row-capacity quantum
+    quantize: Optional[str] = None        # int8 read path (not ported yet)
+    rerank_multiple: int = 4              # quantized over-fetch factor
+    read_path: str = "scan"               # "graph" / "auto" not ported yet
+    planner_costs: Optional[object] = None
+    graph_ef: int = 128                   # traversal beam width
+    graph_width: int = 8                  # expansions per traversal hop
+    graph_max_iters: int = 256            # traversal hop budget
+    pack_warm_compile: bool = True
+    device_budget_bytes: Optional[int] = None   # tiering (not ported yet)
+    tier_window_history: int = 12
+    tier_prefetch: bool = True
+    # Observability: lifecycle/query counters and latency histograms.
+    obs_enabled: bool = True
+    # Query deadline: checked between segment searches; on overrun the
+    # partial answer comes back marked ``degraded=True``.  None = unbounded.
+    query_deadline_ms: Optional[float] = None
+    store_chunk: int = 4096               # PointStore GC granularity (rows)
+    persist_dir: Optional[str] = None     # durability (not ported yet)
+    wal_fsync_every: int = 32
+    mmap_segments: bool = True
+    index_cfg: CubeGraphConfig = dataclasses.field(
+        default_factory=CubeGraphConfig)
+
+
+def _unported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP Queue A item "
+        f"{item})")
+
+
+@dataclasses.dataclass
+class CompactionPlan:
+    """One compaction round, planned against a segment-list snapshot.
+
+    ``gc`` segments are rewritten in place (lazy-deletion reclamation);
+    each ``merges`` group of adjacent segments collapses into one.  The
+    plan pins the ``epoch`` it was made at; ``publish`` drops any operation
+    whose victims have left the list since (expired or already replaced).
+    """
+
+    epoch: int
+    gc: List[SealedSegment]
+    merges: List[List[SealedSegment]]
+    drop_empty: bool = False
+
+    @property
+    def n_ops(self) -> int:
+        """Rewrite operations this plan will perform if fully applied."""
+        return len(self.gc) + sum(len(g) - 1 for g in self.merges)
+
+
+class SegmentManager:
+    """LSM-style lifecycle manager over DeltaBuffer + SealedSegments.
+
+    Thread-safety: all list/ledger mutations take ``_lock``; reads snapshot
+    under the lock and run lock-free (see the module docstring for the
+    compaction epoch guarantee).  Indexes and scans run on ``device``
+    (default: the card).
+    """
+
+    def __init__(self, d: int, m: int, cfg: StreamConfig = StreamConfig(),
+                 device=None):
+        self.d = int(d)
+        self.m = int(m)
+        self.cfg = cfg
+        if cfg.n_shards >= 1:
+            raise _unported("the sharded read path (n_shards >= 1)", 5)
+        if cfg.quantize is not None:
+            raise _unported(f"quantize={cfg.quantize!r}", 6)
+        if cfg.read_path != "scan":
+            if cfg.read_path not in ("graph", "auto"):
+                raise ValueError(f"unknown read_path {cfg.read_path!r}; "
+                                 "supported: 'scan' | 'graph' | 'auto'")
+            raise _unported(f"read_path={cfg.read_path!r}", 7)
+        if cfg.persist_dir is not None:
+            raise _unported("persistence (persist_dir)", 8)
+        if cfg.device_budget_bytes is not None:
+            raise _unported("tiered storage (device_budget_bytes)", 9)
+        self.device = resolve_device(device)
+        self.time_dim = cfg.time_dim % m
+        self.delta = DeltaBuffer(d, m, self.time_dim,
+                                 capacity=min(cfg.seal_max_points, 4096),
+                                 device=self.device)
+        self.segments: List[SealedSegment] = []     # ordered by t_min
+        self.epoch = 0                              # segment-list generation
+        self._lock = threading.RLock()
+        self._next_seg_id = 0
+        self._compact_thread: Optional[threading.Thread] = None
+        self.store = PointStore(d, m, chunk=cfg.store_chunk)
+        self._alive = np.zeros(1024, bool)
+        self.now = -math.inf                        # event-time watermark
+        self.counters = {"sealed": 0, "compactions": 0, "expired_segments": 0,
+                         "expired_points": 0, "deleted": 0,
+                         "store_gc_points": 0}
+        from ..obs import StreamObs
+        self.obs = StreamObs(enabled=cfg.obs_enabled)
+        from .resilience import Supervisor
+        self.supervisor = Supervisor(registry=self.obs.registry)
+
+    # ------------------------------------------------------------------
+    # Options of later slices
+    # ------------------------------------------------------------------
+    def install_fault_injector(self, inj) -> None:
+        raise _unported("fault injection", 10)
+
+    def snapshot_to(self, directory: str) -> dict:
+        raise _unported("persistence (snapshot_to)", 8)
+
+    @classmethod
+    def restore(cls, directory: str, cfg: Optional[StreamConfig] = None,
+                **kw) -> "SegmentManager":
+        raise _unported("persistence (restore)", 8)
+
+    def query_grouped(self, groups, trace=None, observe_group=None):
+        raise _unported("grouped queries (continuous filtered batching)", 11)
+
+    # ------------------------------------------------------------------
+    # Liveness ledger / point store
+    # ------------------------------------------------------------------
+    @property
+    def n_total(self) -> int:
+        """Global ids handed out so far (monotone)."""
+        return self.store.n_total
+
+    @property
+    def alive(self) -> np.ndarray:
+        """Liveness per global id (False once deleted or expired)."""
+        return self._alive[: self.n_total]
+
+    @property
+    def n_live(self) -> int:
+        """Number of live points across the delta buffer and all segments."""
+        return int(self.alive.sum())
+
+    def get_points(self, gids: Sequence[int]):
+        """(x, s, present) rows from the ledger — ``present`` is False for
+        ids whose store chunk was garbage-collected."""
+        return self.store.get(gids)
+
+    def gc_store(self) -> int:
+        """Free point-store chunks with no live id left; returns #rows."""
+        with self._lock:
+            freed = self.store.gc(self.alive)
+            self.counters["store_gc_points"] += freed
+        return freed
+
+    # ------------------------------------------------------------------
+    # Write path
+    # ------------------------------------------------------------------
+    def ingest(self, x: np.ndarray, s: np.ndarray) -> np.ndarray:
+        """Append a batch; returns assigned global ids.  The batch is fed to
+        the delta buffer in seal-policy-sized chunks, so a bulk load larger
+        than ``seal_max_points`` seals into several time-ordered segments
+        instead of one oversized one."""
+        x = np.atleast_2d(np.asarray(x, np.float32))
+        s = np.atleast_2d(np.asarray(s, np.float64))
+        n_add = x.shape[0]
+        with self._lock:
+            gids = self.store.append(x, s)
+            self._alive = grow_rows(self.n_total, (self._alive, False))[0]
+            self._alive[gids] = True
+            self.now = max(self.now, float(s[:, self.time_dim].max()))
+            self.obs.registry.counter(
+                "lifecycle_ingested_points_total").inc(n_add)
+            lo = 0
+            while lo < n_add:
+                room = max(self.cfg.seal_max_points - self.delta.n_live, 1)
+                take = min(room, n_add - lo)
+                self.delta.append(x[lo:lo + take], s[lo:lo + take],
+                                  gids[lo:lo + take])
+                lo += take
+                self.maybe_seal()
+        return gids
+
+    def delete(self, gids: Sequence[int]) -> int:
+        """Lazy delete by global id, wherever each point lives."""
+        gids = np.asarray(gids, np.int64)
+        with self._lock:
+            live = gids[self._alive[gids]]
+            if len(live) == 0:
+                return 0
+            self._alive[live] = False
+            hits = self.delta.delete(live)
+            for seg in self.segments:
+                hits += seg.delete(live)
+            self.counters["deleted"] += hits
+            self.obs.registry.counter("lifecycle_deleted_points_total").inc(
+                len(live))
+        return hits
+
+    # ------------------------------------------------------------------
+    # Seal policy
+    # ------------------------------------------------------------------
+    def should_seal(self) -> bool:
+        """Whether the delta buffer is due to freeze into a segment."""
+        if self.delta.n_live >= self.cfg.seal_max_points:
+            return True
+        return (self.delta.n_live > 0
+                and self.now - self.delta.t_min > self.cfg.seal_max_age)
+
+    def maybe_seal(self) -> Optional[SealedSegment]:
+        """Seal if the policy says so; returns the new segment or None."""
+        return self.seal() if self.should_seal() else None
+
+    def seal(self) -> Optional[SealedSegment]:
+        """Freeze the delta's live points into an immutable indexed
+        segment."""
+        with self._lock:
+            xl, sl, gl = self.delta.live_points()
+            self.delta.reset()
+            if len(gl) == 0:
+                return None
+            seg = SealedSegment.from_points(self._next_seg_id, xl, sl, gl,
+                                            self.time_dim, self.cfg.index_cfg,
+                                            device=self.device)
+            self._next_seg_id += 1
+            self.segments.append(seg)
+            self.segments.sort(key=lambda g: g.t_min)
+            self.epoch += 1
+            self.counters["sealed"] += 1
+            self.obs.registry.counter("lifecycle_sealed_total").inc()
+            self.obs.registry.counter("lifecycle_sealed_points_total").inc(
+                len(gl))
+        return seg
+
+    # ------------------------------------------------------------------
+    # Retention / TTL
+    # ------------------------------------------------------------------
+    def expire(self, now: Optional[float] = None) -> int:
+        """Drop whole segments past retention — O(1) per segment (the index
+        is released, not edited).  Straggler delta points expire via mask."""
+        if not math.isfinite(self.cfg.ttl):
+            return 0
+        with self._lock:
+            cutoff = (self.now if now is None else float(now)) - self.cfg.ttl
+            dropped = 0
+            kept: List[SealedSegment] = []
+            expired = 0
+            for seg in self.segments:
+                if seg.t_max < cutoff:
+                    self._alive[seg.gids] = False
+                    dropped += seg.n_live
+                    self.counters["expired_segments"] += 1
+                    expired += 1
+                else:
+                    kept.append(seg)
+            if len(kept) != len(self.segments):
+                self.segments = kept
+                self.epoch += 1
+            gl = self.delta.expire_before(cutoff)
+            self._alive[gl] = False
+            self.counters["expired_points"] += dropped + len(gl)
+            reg = self.obs.registry
+            reg.counter("lifecycle_expired_segments_total").inc(expired)
+            reg.counter("lifecycle_expired_points_total").inc(
+                dropped + len(gl))
+        return dropped + len(gl)
+
+    # ------------------------------------------------------------------
+    # Compaction (plan under lock / execute lock-free / publish atomically)
+    # ------------------------------------------------------------------
+    def plan_compaction(self) -> Optional[CompactionPlan]:
+        """Pick this round's rewrites against the current segment list.
+
+        Merging simulates the greedy smallest-adjacent-pair policy on live
+        counts, so one plan carries the full set of merge *groups* needed to
+        get the list back under ``compact_max_segments``.  Returns None when
+        there is nothing to do.
+        """
+        with self._lock:
+            segs = [g for g in self.segments if g.n_live > 0]
+            drop_empty = len(segs) != len(self.segments)
+            groups = [[g] for g in segs]
+            while len(groups) > self.cfg.compact_max_segments:
+                sizes = [sum(x.n_live for x in grp) for grp in groups]
+                i = min(range(len(sizes) - 1),
+                        key=lambda j: sizes[j] + sizes[j + 1])
+                groups[i:i + 2] = [groups[i] + groups[i + 1]]
+            merges = [grp for grp in groups if len(grp) > 1]
+            merged = {id(g) for grp in merges for g in grp}
+            gc = [g for g in segs if id(g) not in merged
+                  and g.deleted_fraction() > self.cfg.compact_deleted_fraction]
+            if not gc and not merges and not drop_empty:
+                return None
+            plan = CompactionPlan(self.epoch, gc, merges, drop_empty)
+            self.obs.registry.counter("compaction_plans_total").inc()
+            self.obs.registry.counter("compaction_planned_ops_total").inc(
+                plan.n_ops)
+            return plan
+
+    def execute_compaction(self, plan: CompactionPlan
+                           ) -> List[Tuple[List[SealedSegment],
+                                           Optional[SealedSegment]]]:
+        """Build every replacement segment in the plan — the expensive part,
+        run without the lock (this is what ``compact_async`` moves off the
+        ingest/query path).  Returns ``(victims, replacement)`` pairs."""
+        t0 = time.perf_counter()
+        built: List[Tuple[List[SealedSegment], Optional[SealedSegment]]] = []
+        for seg in plan.gc:
+            built.append(([seg], seg.compacted()))
+        for grp in plan.merges:
+            built.append((grp, self._merge_group(grp)))
+        self.obs.registry.counter("compaction_executed_ops_total").inc(
+            plan.n_ops)
+        self.obs.registry.histogram("compaction_execute_ms").observe(
+            (time.perf_counter() - t0) * 1e3)
+        return built
+
+    def publish_compaction(self, plan: CompactionPlan, built) -> int:
+        """Atomically swap replacements into the segment list.
+
+        Operations whose victims already left the list (expired or replaced
+        by a racing round) are dropped; deletions that landed during the
+        build are re-applied to each replacement before it becomes visible.
+        Bumps ``epoch``.  Returns the number of applied rewrite ops.
+        """
+        ops = 0
+        with self._lock:
+            current = {id(g) for g in self.segments}
+            out = list(self.segments)
+            for victims, new_seg in built:
+                if any(id(v) not in current for v in victims):
+                    continue
+                if new_seg is not None:
+                    dead = new_seg.gids[~self._alive[new_seg.gids]]
+                    if len(dead):
+                        new_seg.delete(dead)
+                victim_ids = {id(v) for v in victims}
+                out = [g for g in out if id(g) not in victim_ids]
+                if new_seg is not None and new_seg.n_live > 0:
+                    out.append(new_seg)
+                ops += 1 if len(victims) == 1 else len(victims) - 1
+            out = [g for g in out if g.n_live > 0]
+            if ops > 0 or len(out) != len(self.segments):
+                out.sort(key=lambda g: g.t_min)
+                self.segments = out
+                self.epoch += 1
+            if ops:
+                self.counters["compactions"] += 1
+                self.obs.registry.counter(
+                    "compaction_published_ops_total").inc(ops)
+        return ops
+
+    def compact(self) -> int:
+        """One full synchronous compaction: plan/execute/publish rounds
+        until a plan comes back empty; returns total rewrite operations.
+        (Call :meth:`compact_async` to run this off the hot path.)"""
+        total = 0
+        for _ in range(8):          # one round in the uncontended case
+            plan = self.plan_compaction()
+            if plan is None:
+                break
+            built = self.execute_compaction(plan)
+            applied = self.publish_compaction(plan, built)
+            total += applied
+            if applied < plan.n_ops:
+                break               # racing mutations; let the next tick retry
+        return total
+
+    def compact_async(self) -> threading.Thread:
+        """Run :meth:`compact` on a supervised daemon thread (at most one
+        at a time); returns the thread.  Queries and ingest proceed
+        concurrently — the publish step is the only part that takes the
+        lock.  A compaction that raises is retried with bounded backoff
+        by the :class:`~.resilience.Supervisor` and recorded in
+        ``stats()["health"]``."""
+        t = self.supervisor.spawn("compactor", self.compact)
+        self._compact_thread = t
+        return t
+
+    def wait_for_compaction(self, timeout: Optional[float] = None) -> None:
+        """Block until the background compaction (if any) finishes."""
+        t = self._compact_thread
+        if t is not None:
+            t.join(timeout)
+
+    def _merge_group(self, segs: Sequence[SealedSegment]
+                     ) -> Optional[SealedSegment]:
+        """Rebuild one segment from the live points of ``segs``."""
+        xs, ss, gs = [], [], []
+        for g in segs:
+            xl, sl, gl = g.live_points()
+            xs.append(xl)
+            ss.append(sl)
+            gs.append(gl)
+        gids = np.concatenate(gs)
+        if len(gids) == 0:
+            return None
+        with self._lock:
+            sid = self._next_seg_id
+            self._next_seg_id += 1
+        return SealedSegment.from_points(sid, np.concatenate(xs),
+                                         np.concatenate(ss), gids,
+                                         self.time_dim, self.cfg.index_cfg,
+                                         device=self.device)
+
+    def maintenance(self, async_compaction: bool = False) -> dict:
+        """One lifecycle tick: seal (if due) + expire + compact + store GC.
+
+        With ``async_compaction`` the compaction rounds run on the
+        background thread and this tick returns immediately (the dict then
+        reports ``compaction_ops=None``)."""
+        sealed = self.maybe_seal() is not None
+        expired = self.expire()
+        if async_compaction:
+            self.compact_async()
+            compactions = None
+        else:
+            compactions = self.compact()
+        freed = self.gc_store()
+        return {"sealed": sealed, "expired_points": expired,
+                "compaction_ops": compactions, "store_gc_points": freed}
+
+    # ------------------------------------------------------------------
+    # Read path (fan-out lives in streaming/query.py)
+    # ------------------------------------------------------------------
+    def snapshot(self):
+        """(epoch, segment-list copy, frozen delta rows) — the consistent
+        view a query runs against while ingest/seal/compaction publish
+        concurrently, captured in one lock hold."""
+        with self._lock:
+            return self.epoch, list(self.segments), self.delta.freeze()
+
+    def query(self, queries: np.ndarray, filt: Optional[Filter], k: int = 10,
+              ef: int = 64, return_stats: bool = False,
+              return_trace: bool = False, **kw):
+        """Unified fan-out query over the delta buffer + sealed segments;
+        see :func:`repro_torch.streaming.query.query_segments`.  Returns
+        host ``(gids [b, k] int64, dists [b, k] fp32)``.
+
+        ``return_trace`` appends a finished
+        :class:`~repro_torch.obs.trace.QueryTrace` to the result tuple.
+        ``deadline_ms`` (forwarded via ``**kw``) bounds this call's time
+        budget."""
+        from .query import query_segments
+        if not return_trace:
+            return query_segments(self, queries, filt, k=k, ef=ef,
+                                  return_stats=return_stats, **kw)
+        from ..obs.trace import QueryTrace
+        from .resilience import QueryResult
+        trace = QueryTrace("query")
+        out = query_segments(self, queries, filt, k=k, ef=ef,
+                             return_stats=return_stats, trace=trace, **kw)
+        return QueryResult(out + (trace.finish(),), degraded=out.degraded,
+                           reasons=out.reasons)
+
+    def stats(self) -> dict:
+        """Lifecycle counters, per-segment occupancy, and the ``obs``
+        metrics block for dashboards.  Strict-JSON safe end-to-end."""
+        from ..obs.metrics import json_sanitize
+        with self._lock:
+            return json_sanitize({
+                "pack_nbytes": 0,
+                "pack_buckets": {},
+                "n_total": self.n_total,
+                "n_live": self.n_live,
+                "delta_live": self.delta.n_live,
+                "n_segments": len(self.segments),
+                "segment_live": [g.n_live for g in self.segments],
+                "segment_spans": [(g.t_min, g.t_max) for g in self.segments],
+                "now": self.now,
+                "epoch": self.epoch,
+                "n_shards": self.cfg.n_shards,
+                "quantize": self.cfg.quantize,
+                "tier": None,
+                "store_resident_points": self.store.resident_points,
+                "store_nbytes": self.store.nbytes,
+                "health": self.supervisor.health(),
+                "obs": self.obs.snapshot(),
+                **self.counters,
+            })

@@ -23,3 +23,9 @@ def _clear_jax_caches_per_module():
     yield
     jax.clear_caches()
     gc.collect()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (kernel vs twin on the card); "
+        "skips without one")
