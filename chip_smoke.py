@@ -7,12 +7,14 @@ Run from the repository root, with no arguments::
 
 It builds the hand-written kernels from ``src/repro_torch/csrc`` (one
 ``nvcc`` per source, started together), holds each kernel against its plain
-PyTorch twin, then drives the port's main path at deployment widths
+PyTorch twin, then drives the port's main paths at deployment widths
 (d = 768) — the exact filtered scan over 1M vectors, a CubeGraph index
-built and queried on the card, and the default streaming
-``SegmentManager`` — and checks the answers against exact ground truth.
-Finally it times each kernel beside its twin, its roofline bound and one
-PyTorch library call computing the same function.
+built and queried on the card, the default streaming ``SegmentManager``,
+and the sharded sealed read path (``n_shards=2``, fp32 and int8 packs,
+forced scan, forced graph and planner-chosen reads) — and checks the
+answers against exact ground truth.  Finally it times each kernel beside
+its twin, its roofline bound and one PyTorch library call computing the
+same function.
 
 The last three lines of standard output are the card's name and power
 limit (from ``nvidia-smi``), a JSON object describing every kernel, and
@@ -44,6 +46,8 @@ QUERIES = 1000
 N_SCAN = 1_000_000
 N_INDEX = 100_000       # cut from 1M: level-0 kNN is O(n^2 / 2^m * d)
 N_STREAM = 100_000
+N_SHARDED = 100_000     # points per manager in the sharded streaming phase
+EARLY_QUERY_BATCH = 2   # the sharded managers' first query, after 3 batches
 SEED = 0
 
 
@@ -131,6 +135,29 @@ def compare_topk(torch, kd, ki, td, ti, scale, what: str) -> float:
     bad = unique & (ki != ti)
     check(not bool(bad.any()), f"{what}: {int(bad.sum())} ids differ at "
           "untied distances")
+    return err
+
+
+def compare_hop(torch, args, tol, what: str) -> float:
+    """B4 kernel vs twin on one hop's ``args`` (q, pos, block, meta,
+    params, kind, metric, scales): equal masks, ``+inf`` at missing
+    positions, distances within ``tol`` ([b, 1]) at the others.  Returns
+    the largest absolute distance difference."""
+    from repro_torch.kernels.graph_topk import (beam_step_plain,
+                                                beam_step_scores)
+    *head, sc = args
+    pos = args[1]
+    kd, kok = beam_step_scores(*head, scales=sc)
+    torch.cuda.synchronize()
+    td, tok = beam_step_plain(*head, scales=sc)
+    valid = pos >= 0
+    check(bool(torch.equal(kok, tok)), f"{what}: masks differ")
+    check(bool(torch.isinf(kd[~valid]).all()),
+          f"{what}: missing positions not +inf")
+    diff = torch.where(valid, (kd - td).abs(), torch.zeros_like(kd))
+    err = float(diff.max()) if diff.numel() else 0.0
+    check(bool((diff <= tol).all()),
+          f"{what}: distance error {err:.3g} above tolerance")
     return err
 
 
@@ -222,6 +249,80 @@ def phase_kernels(torch, dev, seed: int, errs: dict) -> None:
             errs["pairwise_dist"] = max(errs["pairwise_dist"], e)
     log(f"B2 vs twin: fp32 and bf16 x 2 metrics agree; max |err| "
         f"{errs['pairwise_dist']:.3g}")
+    # B3 / B4 at a width with d % 4 != 0 (B4's element loads and tail
+    # piece) and at the deployment width D (its 16-byte / 4-byte loads)
+    phase_kernels_sharded(torch, dev, x, s, q, filters, errs)
+    xw, sw = make_dataset_device(n, D, m, seed=seed + 1, device=dev)
+    phase_kernels_sharded(torch, dev, xw, sw, xw[:bq] + 0.05, filters, errs)
+
+
+def phase_kernels_sharded(torch, dev, x, s, q, filters, errs) -> None:
+    """B3 and B4 against their twins on ragged shard stacks (g = 3) built
+    from ``x``: every filter kind x metric, B3 at kpad 16 / 512 / 2048
+    (the quantized over-fetch of k = 300 needs 2048), B4 on fp32 and int8
+    blocks with missing positions."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.quant_topk import (quant_topk_call,
+                                                quant_topk_plain)
+    from repro_torch.quant import dequantize, encode_segment
+    g, cap = 3, 1664
+    n, d = x.shape
+    m = s.shape[1]
+    fills = (cap, 1500, 777)
+    codes = torch.zeros((g, cap, d), dtype=torch.int8, device=dev)
+    ss = torch.full((g, cap, m), ops.PAD_META, device=dev)
+    xsq = torch.zeros((g, cap), device=dev)
+    scales = torch.zeros((g, d), device=dev)
+    deq = torch.zeros((g, cap, d), device=dev)
+    for gi, fill in enumerate(fills):
+        lo = gi * 1000
+        sq = encode_segment(x[lo:lo + fill].cpu().numpy())
+        codes[gi, :fill] = torch.as_tensor(sq.codes, device=dev)
+        ss[gi, :fill] = s[lo:lo + fill]
+        xsq[gi, :fill] = torch.as_tensor(sq.xsq, device=dev)
+        scales[gi] = torch.as_tensor(sq.scales, device=dev)
+        deq[gi, :fill] = torch.as_tensor(dequantize(sq.codes, sq.scales),
+                                         device=dev)
+    qs = q[None] * scales[:, None, :]
+    scale = row_scale(torch, q, deq.reshape(-1, d))[None]
+    for kind, f in filters.items():
+        params = torch.as_tensor(ops.encode_filter(f, m, mpad=m)[1],
+                                 device=dev)
+        for metric in ("l2", "ip"):
+            for kpad in (16, 512, 2048):
+                kd, ki = quant_topk_call(qs, codes, ss, xsq, params, kind,
+                                         kpad, metric)
+                torch.cuda.synchronize()
+                td, ti = quant_topk_plain(qs, codes, ss, xsq, params, kind,
+                                          kpad, metric)
+                e = compare_topk(torch, kd, ki, td, ti, scale,
+                                 f"B3 {kind}/{metric}/kpad={kpad}")
+                errs["quant_topk"] = max(errs["quant_topk"], e)
+    log(f"B3 vs twin: 5 kinds x 2 metrics x kpad in (16, 512, 2048) on "
+        f"g={g} int8 stacks at d={d} agree; max |err| "
+        f"{errs['quant_topk']:.3g}")
+    rng = np.random.default_rng(7)
+    xb = torch.zeros((g, cap, d), device=dev)
+    for gi, fill in enumerate(fills):
+        xb[gi, :fill] = x[gi * 1000: gi * 1000 + fill]
+    b, c = q.shape[0], 512
+    pos = torch.as_tensor(rng.integers(-1, g * cap, size=(b, c)),
+                          dtype=torch.int32, device=dev)
+    for name, block, sc, ref_x in (("fp32", xb, None, xb),
+                                   ("int8", codes, scales, deq)):
+        tol = 1e-5 * row_scale(torch, q, ref_x.reshape(-1, d))
+        for kind, f in filters.items():
+            params = torch.as_tensor(ops.encode_filter(f, m, mpad=m)[1],
+                                     device=dev)
+            for metric in ("l2", "ip"):
+                err = compare_hop(
+                    torch, (q, pos, block, ss, params, kind, metric, sc),
+                    tol, f"B4 {name} d={d} {kind}/{metric}")
+                errs["graph_step"] = max(errs["graph_step"], err)
+    log(f"B4 vs twin: fp32 and int8 blocks x 5 kinds x 2 metrics, "
+        f"b={b} c={c} d={d} with missing positions agree; max |err| "
+        f"{errs['graph_step']:.3g}")
 
 
 def main_scan(torch, dev, n: int, d: int, nq: int, seed: int, errs: dict,
@@ -412,6 +513,283 @@ def main_stream(torch, dev, n: int, d: int, nq: int, seed: int) -> None:
         check(r >= 0.8, f"stream {name}: recall {r:.4f} < 0.8")
 
 
+def main_sharded(torch, dev, n: int, d: int, nq: int, seed: int,
+                 keep: dict) -> dict:
+    """The sharded sealed read path: two SegmentManagers (fp32 and int8
+    packs, the exp13/exp15 settings) ingest a time-ordered stream with a
+    maintenance tick per batch, then 1% deletes and a TTL expiry; each
+    filter is queried with forced scan, forced graph and the planner's
+    choice.  Returns the launches of B1 / B3 / B4 in this phase."""
+    import numpy as np
+    from repro_torch.core import BoxFilter, ComposeFilter, IntervalFilter
+    from repro_torch.core.workloads import make_dataset_device, recall
+    from repro_torch.kernels import ops
+    from repro_torch.streaming import SegmentManager, StreamConfig
+    mods = {name: importlib.import_module(f"repro_torch.kernels.{mod}")
+            for name, mod in (("filtered_topk", "filtered_topk"),
+                              ("quant_topk", "quant_topk"),
+                              ("graph_step", "graph_topk"))}
+    m, k, batch = 3, 10, 4096
+    xt, st_ = make_dataset_device(n, d, m, seed=seed + 30, device=dev)
+    x, s = xt.cpu().numpy(), st_.cpu().numpy().astype(np.float64)
+    s[:, 2] = np.arange(n) / n                    # event time
+    rng = np.random.default_rng(seed + 31)
+    qi = rng.integers(0, n, nq)
+    q = x[qi] + 0.05 * rng.normal(size=(nq, d)).astype(np.float32)
+    filters = {
+        "interval": IntervalFilter(dim=2, lo=0.9),
+        "box_and_interval": ComposeFilter(
+            BoxFilter(lo=np.asarray([0.2, 0.2, 0.0], np.float32),
+                      hi=np.asarray([0.8, 0.8, 1.0], np.float32)),
+            IntervalFilter(dim=2, lo=0.6, hi=1.0), "and"),
+    }
+    for mod in mods.values():
+        mod.reset_launch_count()
+    managers, packs = {}, {}
+    for quantize in (None, "int8"):
+        cfg = StreamConfig(time_dim=2, seal_max_points=2048, n_shards=2,
+                           read_path="auto", graph_ef=192, rerank_multiple=4,
+                           ttl=0.8, quantize=quantize)
+        mgr = SegmentManager(d, m, cfg, device=dev)
+        t0 = time.perf_counter()
+        for bi, lo in enumerate(range(0, n, batch)):
+            mgr.ingest(x[lo:lo + batch], s[lo:lo + batch])
+            mgr.maintenance()
+            if bi == EARLY_QUERY_BATCH:
+                # a query while the stream is young builds the pack; from
+                # here on every seal, compaction, delete and expiry reaches
+                # it through the copy-on-write deltas
+                mgr.query(q[:64], None, k=k)
+                packs[quantize or "fp32"] = mgr._pack
+                check(mgr._pack is not None, "the early query built no pack")
+        torch.cuda.synchronize()
+        st = mgr.stats()
+        log(f"sharded[{quantize or 'fp32'}] ingest: {n} points, "
+            f"{time.perf_counter() - t0:.1f} s; sealed {st['sealed']}, "
+            f"compactions {st['compactions']}, segments {st['n_segments']}")
+        managers[quantize or "fp32"] = mgr
+    dead = None
+    for name, mgr in managers.items():
+        live = np.nonzero(mgr.alive)[0]
+        if dead is None:
+            dead = np.random.default_rng(seed + 32).choice(
+                live, size=len(live) // 100, replace=False)
+        mgr.delete(dead)
+        expired = mgr.expire(now=mgr.now + 0.15)
+        log(f"sharded[{name}]: deleted {len(dead)}, expired {expired}; "
+            f"live {mgr.n_live} of {mgr.n_total}")
+        pack_errors = mgr.stats()["health"].get("pack_delta", {})
+        check(mgr._pack is packs[name] and not pack_errors.get("errors"),
+              f"sharded[{name}]: the pack was rebuilt instead of kept by "
+              f"deltas ({pack_errors.get('last_error')})")
+    check(bool(np.array_equal(managers["fp32"].alive,
+                              managers["int8"].alive)),
+          "the two managers disagree on liveness")
+    live = np.nonzero(managers["fp32"].alive)[0]
+    truth = {}
+    for fname, f in filters.items():
+        gt, _ = ops.exact_filtered_search(q, x[live], s[live], f, k,
+                                          device=dev)
+        gt = gt.cpu().numpy()
+        truth[fname] = np.where(gt >= 0, live[np.maximum(gt, 0)], -1)
+    for name, mgr in managers.items():
+        for fname, f in filters.items():
+            for rp in ("scan", "graph", "auto"):
+                before = {kn: mod.launch_count() for kn, mod in mods.items()}
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                gids, dd = mgr.query(q, f, k=k, read_path=rp)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                # the query's own working memory (visited bitmaps, beams,
+                # kernel outputs)
+                work = (torch.cuda.max_memory_allocated() - base) / 2**30
+                used = {kn: mod.launch_count() - before[kn]
+                        for kn, mod in mods.items()}
+                check(gids.shape == (nq, k) and dd.shape == (nq, k),
+                      f"sharded {name}/{fname}/{rp}: shape {gids.shape}")
+                check(not bool(np.isin(gids[gids >= 0], dead).any()),
+                      f"sharded {name}/{fname}/{rp}: a deleted point")
+                r = recall(gids, truth[fname])
+                plan = ({c: p.mode for c, p in mgr.last_plan.items()}
+                        if rp != "scan" and mgr.last_plan else {})
+                log(f"sharded[{name}] {fname} read_path={rp}: recall@10 "
+                    f"{r:.4f}, {nq / dt:.0f} QPS (host clock), query "
+                    f"working memory {work:.3f} GiB, launches {used}, "
+                    f"plan {plan}")
+                floor = 0.999 if (name, rp) == ("fp32", "scan") else 0.8
+                check(r >= floor, f"sharded {name}/{fname}/{rp}: recall "
+                      f"{r:.4f} < {floor}")
+    launches = {kn: mod.launch_count() for kn, mod in mods.items()}
+    log(f"sharded phase launches: {launches}")
+    for kn, c in launches.items():
+        check(c >= 1, f"kernel {kn} was not launched in the sharded phase")
+    nb = {name: mgr.stats()["pack_nbytes"] for name, mgr in managers.items()}
+    log(f"sharded pack device bytes: fp32 {nb['fp32']}, int8 {nb['int8']},"
+        f" ratio {nb['fp32'] / max(nb['int8'], 1):.3f}; buckets "
+        f"{managers['fp32'].stats()['pack_buckets']}")
+    keep.update(managers=managers, q_sharded=q,
+                sharded_filter=filters["box_and_interval"])
+    return launches
+
+
+def record_hops(torch, mgr, q, f, k: int) -> dict:
+    """One forced-graph read of ``mgr``, recording the arguments of every
+    B4 launch: ``{block data_ptr: [(q, pos, block, meta, params, kind,
+    metric, scales), ...]}`` in launch order (the seed scoring, then one
+    per hop)."""
+    gmod = importlib.import_module("repro_torch.kernels.graph_topk")
+    real = gmod.beam_step_scores
+    calls: dict = {}
+
+    def recorder(q, pos, x, s, params, kind, metric="l2", scales=None):
+        calls.setdefault(x.data_ptr(), []).append(
+            (q, pos.clone(), x, s, params, kind, metric, scales))
+        return real(q, pos, x, s, params, kind, metric, scales=scales)
+    gmod.beam_step_scores = recorder
+    try:
+        mgr.query(q, f, k=k, read_path="graph")
+    finally:
+        gmod.beam_step_scores = real
+    return calls
+
+
+def measure_sharded(torch, keep: dict, nq: int, errs: dict) -> dict:
+    """B3 over the largest int8 bucket (kpad 64, the over-fetch of k = 10
+    at rerank_multiple 4) and one B4 hop as a traversal makes it (the
+    middle hop of a forced-graph box-and-interval read, on the largest
+    bucket it traverses) in the fp32 and int8 managers.  Each is held against its
+    twin on these inputs, then timed beside the twin, its bound and a
+    library yardstick."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.graph_topk import (beam_step_plain,
+                                                beam_step_scores)
+    from repro_torch.kernels.quant_topk import (quant_topk_call,
+                                                quant_topk_plain)
+    managers, f = keep["managers"], keep["sharded_filter"]
+    q_np = keep["q_sharded"]
+    dev = managers["fp32"].device
+    q = torch.as_tensor(q_np, device=dev)
+    d = q.shape[1]
+    qn = (q * q).sum(-1)[:, None]
+    out = {}
+    view = managers["int8"]._pack.view()
+    bv = max(view.buckets, key=lambda b: b.gids.numel())
+    rows, cap = bv.gids.shape
+    m = bv.s.shape[2]
+    kind, params = ops.encode_filter(f, m, mpad=m)
+    p = torch.as_tensor(params, device=dev)
+    kpad = 64
+    qs = q[None] * bv.scales[:, None, :]
+    args = (qs, bv.codes, bv.s, bv.xsq, p, kind, kpad, "l2")
+    kd, ki = quant_topk_call(*args)
+    torch.cuda.synchronize()
+    td, ti = quant_topk_plain(*args)
+    e = compare_topk(torch, kd, ki, td, ti, qn + bv.xsq.max(),
+                     f"B3 main-path bucket [{rows}, {cap}]")
+    errs["quant_topk"] = max(errs["quant_topk"], e)
+    log(f"B3 vs twin on the largest int8 bucket [{rows}, {cap}, {d}], "
+        f"{nq} queries, {kind}, kpad {kpad}: agree, max |err| {e:.3g}")
+    ms = cuda_ms(torch, lambda: quant_topk_call(*args), iters=10)
+    plain = cuda_ms(torch, lambda: quant_topk_plain(*args), iters=2,
+                    warmup=1)
+    lo = p[0, :m]
+    hi = p[1, :m]
+
+    def b3_library():
+        deqb = bv.codes.float() * bv.scales[:, None, :]
+        dm = bv.xsq[:, None, :] - 2.0 * torch.matmul(q[None],
+                                                     deqb.transpose(1, 2))
+        ok = ((bv.s >= lo) & (bv.s <= hi)).all(-1)
+        return torch.topk(dm.masked_fill_(~ok[:, None, :], float("inf")),
+                          kpad, dim=-1, largest=False)
+    lib = cuda_ms(torch, b3_library, iters=3, warmup=1)
+    npos = rows * cap
+    flops = 2.0 * nq * npos * d
+    nbytes = (npos * (d + 4 * m + 4) + 4.0 * rows * nq * d
+              + 8.0 * rows * nq * kpad)
+    out["quant_topk"] = dict(
+        ms=ms, plain_ms=plain, library_ms=lib,
+        bound_ms=max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+        bound_by="operations" if flops / PEAK_FP32_FLOPS
+        >= nbytes / PEAK_BYTES else "bytes",
+        shape=f"q[{nq},{d}] codes[{rows},{cap},{d}] int8 {kind} kpad={kpad}")
+    for name in ("fp32", "int8"):
+        calls = record_hops(torch, managers[name], q_np, f, 10)
+        check(bool(calls), f"B4 {name}: the graph read traversed no bucket")
+        # the largest traversed bucket, its middle hop (launch 0 scores
+        # the seeds)
+        seq = max(calls.values(),
+                  key=lambda c: c[0][2].shape[0] * c[0][2].shape[1])
+        n_hops = len(seq) - 1
+        check(n_hops >= 1, f"B4 {name}: the traversal made no hop")
+        hop = (n_hops + 1) // 2
+        args = seq[hop]
+        del calls, seq
+        hq, pos, block, s_blk, hp, hkind, metric, sc = args
+        rows, cap = block.shape[:2]
+        b, c = pos.shape
+        m = s_blk.shape[2]
+        valid = pos >= 0
+        n_valid = int(valid.sum())
+        uniq = int(torch.unique(pos[valid]).numel())
+        neg = 1.0 - n_valid / max(b * c, 1)
+        deq = (block.float() * sc[:, None, :] if name == "int8"
+               else block).reshape(rows * cap, d)
+        tol = 1e-5 * ((hq * hq).sum(-1)[:, None] + (deq * deq).sum(-1).max())
+        del deq
+        e = compare_hop(torch, args, tol, f"B4 {name} main-path hop")
+        errs["graph_step"] = max(errs["graph_step"], e)
+        log(f"B4 {name} vs twin on hop {hop} of {n_hops} of the forced-"
+            f"graph read, block [{rows}, {cap}, {d}], b={b} c={c}: agree, "
+            f"max |err| {e:.3g}; "
+            f"{neg:.4f} of the lanes are -1, {uniq} distinct rows in "
+            f"{n_valid} gathers")
+        kw = {"scales": sc}
+        head = args[:7]
+        ms = cuda_ms(torch, lambda: beam_step_scores(*head, **kw), iters=10)
+        plain = cuda_ms(torch, lambda: beam_step_plain(*head, **kw),
+                        iters=3, warmup=1)
+        flat_x = block.reshape(rows * cap, d)
+        flat_s = s_blk.reshape(rows * cap, m)
+        pl = pos.long().clamp_min(0)
+        lo = hp[0, :m]
+        hi = hp[1, :m]
+
+        def b4_library():
+            cx = flat_x[pl]
+            if name == "int8":
+                cx = cx.float() * sc[pl // cap]
+            ip = torch.bmm(cx, hq[:, :, None])[:, :, 0]
+            dm = (cx * cx).sum(-1) - 2.0 * ip + (hq * hq).sum(-1)[:, None]
+            cm = flat_s[pl]
+            ok = ((cm >= lo) & (cm <= hi)).all(-1) & valid
+            return dm.masked_fill(~valid, float("inf")), ok
+        lib = cuda_ms(torch, b4_library, iters=3, warmup=1)
+        row_b = d * (1 if name == "int8" else 4) + 4 * m
+        nbytes = uniq * row_b + 4.0 * b * c + 4.0 * b * d + 8.0 * b * c
+        if name == "int8":
+            nbytes += 4.0 * rows * d
+        flops = 4.0 * n_valid * d
+        gathered = n_valid * row_b
+        log(f"B4 {name}: {uniq} distinct rows of {rows * cap} gathered "
+            f"{n_valid} times ({gathered / 1e9:.3f} GB if every gather "
+            f"came from HBM, {gathered / PEAK_BYTES * 1e3:.3f} ms)")
+        out[f"graph_step_{name}"] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib,
+            bound_ms=max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+            bound_by="operations" if flops / PEAK_FP32_FLOPS
+            >= nbytes / PEAK_BYTES else "bytes",
+            neg_share=neg, distinct_rows=uniq,
+            shape=f"hop {hop} of {n_hops} of a forced-graph read: "
+                  f"q[{b},{d}] pos[{b},{c}] "
+                  f"({neg:.4f} of lanes -1, {uniq} distinct rows) "
+                  f"block[{rows},{cap},{d}] {name} {hkind}")
+    return out
+
+
 def measure(torch, keep: dict, nq: int, d: int) -> dict:
     """Kernel, twin and library times at the main path's shapes."""
     from repro_torch.kernels import ops
@@ -483,6 +861,8 @@ def main() -> int:
         # the package re-exports functions under the module names
         b1 = importlib.import_module("repro_torch.kernels.filtered_topk")
         b2 = importlib.import_module("repro_torch.kernels.distance")
+        importlib.import_module("repro_torch.kernels.quant_topk")
+        importlib.import_module("repro_torch.kernels.graph_topk")
     except ImportError as exc:
         print(f"chip_smoke: the port's sources are not here ({exc})",
               file=sys.stderr)
@@ -509,7 +889,8 @@ def main() -> int:
                      if "ptxas" in ln]
             log(f"[{name}] " + ("\n[{name}] ".format(name=name).join(lines)
                                 if lines else "already built"))
-    errs = {"filtered_topk": 0.0, "pairwise_dist": 0.0}
+    errs = {"filtered_topk": 0.0, "pairwise_dist": 0.0, "quant_topk": 0.0,
+            "graph_step": 0.0}
     with Phase("2 kernels vs twins", torch):
         phase_kernels(torch, dev, SEED, errs)
     if args.kernels_only:
@@ -527,12 +908,19 @@ def main() -> int:
         main_stream(torch, dev, N_STREAM, D, QUERIES, SEED)
     launches = {"filtered_topk": b1.launch_count(),
                 "pairwise_dist": b2.launch_count()}
-    log(f"main-path launches: {launches}")
+    log(f"main-path launches (phases 3-5): {launches}")
     for name, c in launches.items():
         check(c >= 1, f"kernel {name} was not launched on the main path")
+    with Phase("5b sharded streaming", torch):
+        # the phase resets every count just before it and reads it after
+        sharded = main_sharded(torch, dev, N_SHARDED, D, QUERIES, SEED, keep)
+    launches["filtered_topk"] += sharded["filtered_topk"]
+    launches["quant_topk"] = sharded["quant_topk"]
+    launches["graph_step"] = sharded["graph_step"]
 
     with Phase("6 measure", torch):
         meas = measure(torch, keep, QUERIES, D)
+        meas.update(measure_sharded(torch, keep, QUERIES, errs))
         for name, mm in meas.items():
             log(f"{name} at {mm['shape']}: kernel {mm['ms']:.3f} ms, twin "
                 f"{mm['plain_ms']:.3f} ms, library {mm['library_ms']:.3f} "
@@ -540,17 +928,32 @@ def main() -> int:
     sources = {"filtered_topk": ("src/repro_torch/csrc/filtered_topk.cu",
                                  "src/repro/kernels/filtered_topk.py:131"),
                "pairwise_dist": ("src/repro_torch/csrc/distance.cu",
-                                 "src/repro/kernels/distance.py:36")}
+                                 "src/repro/kernels/distance.py:36"),
+               "quant_topk": ("src/repro_torch/csrc/quant_topk.cu",
+                              "src/repro/kernels/quant_topk.py:128"),
+               "graph_step": ("src/repro_torch/csrc/graph_step.cu",
+                              "src/repro/kernels/graph_topk.py:75")}
     kernels = []
-    for name in ("filtered_topk", "pairwise_dist"):
-        mm = meas[name]
-        kernels.append({
+    for name, mkey in (("filtered_topk", "filtered_topk"),
+                       ("pairwise_dist", "pairwise_dist"),
+                       ("quant_topk", "quant_topk"),
+                       ("graph_step", "graph_step_fp32")):
+        mm = meas[mkey]
+        entry = {
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
             "max_abs_err": errs[name], "ms": mm["ms"],
             "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
             "bound_by": mm["bound_by"], "library_ms": mm["library_ms"],
-            "shape": mm["shape"]})
+            "shape": mm["shape"]}
+        if name == "graph_step":
+            for key in ("neg_share", "distinct_rows"):
+                entry[key] = mm[key]
+            entry["int8"] = {key: meas["graph_step_int8"][key] for key in
+                             ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "neg_share", "distinct_rows",
+                              "shape")}
+        kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))

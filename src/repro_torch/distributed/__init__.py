@@ -1,0 +1,14 @@
+"""Sharded sealed-segment storage: the size-bucketed shard pack, its delta
+protocol and the per-bucket kernel dispatch (``segment_shards``)."""
+from .segment_shards import (BucketedShardPack, BucketView, PackView,
+                             SegmentShardSource, ShardPack, bucket_cap_for,
+                             bucket_graph_seeds, build_bucketed_pack,
+                             build_shard_pack, host_topk, make_shard_mesh,
+                             pack_search, pack_search_blocks,
+                             pack_search_blocks_grouped)
+
+__all__ = ["BucketedShardPack", "BucketView", "PackView",
+           "SegmentShardSource", "ShardPack", "bucket_cap_for",
+           "bucket_graph_seeds", "build_bucketed_pack", "build_shard_pack",
+           "host_topk", "make_shard_mesh", "pack_search",
+           "pack_search_blocks", "pack_search_blocks_grouped"]

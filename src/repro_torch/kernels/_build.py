@@ -18,13 +18,13 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["BUILD_DIR", "KERNEL_SOURCES", "build", "load"]
+__all__ = ["BUILD_DIR", "KERNEL_SOURCES", "build", "load", "loaded"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 # repo root (src/repro_torch/kernels -> repo)
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch_kernels"
-KERNEL_SOURCES = ("filtered_topk", "distance")
+KERNEL_SOURCES = ("filtered_topk", "distance", "quant_topk", "graph_step")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,6 +42,13 @@ _SIGNATURES = {
     "distance": {
         "repro_pairwise_dist": ([_P, _P, _P] + [_I] * 5 + [_P], _I),
     },
+    "quant_topk": {
+        "repro_quant_topk": ([_P] * 9 + [_I] * 11 + [_L] * 4 + [_P], _I),
+        "repro_quant_topk_tile_q": ([_I], _I),
+    },
+    "graph_step": {
+        "repro_graph_step": ([_P] * 8 + [_I] * 10 + [_P], _I),
+    },
 }
 
 
@@ -55,7 +62,10 @@ def _nvcc() -> str:
 
 
 def _so_path(name: str) -> Path:
+    """Library path keyed by the source, every shared header and the
+    flags, so an edit to any of them rebuilds."""
     src = (SRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
@@ -88,6 +98,11 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
     if failed:
         raise RuntimeError("repro_torch: nvcc failed for " + "\n".join(failed))
     return logs
+
+
+def loaded(name: str) -> bool:
+    """Whether the library for ``csrc/<name>.cu`` is loaded already."""
+    return name in _LIBS
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,0 +1,311 @@
+"""Beam-step kernel (B4) + stitched per-bucket graph traversal.
+
+The graph read path for sealed segments: a bucketed shard pack can carry,
+next to its fp32 or int8 scan blocks, a ``[rows, cap, degp]`` adjacency
+block of *flattened bucket positions* (``row * cap + col``) staged from
+each sealed segment's CubeGraph layers.  :func:`bucket_graph_topk`
+traverses it with a batched best-first beam search whose hot step is
+:func:`beam_step_scores`:
+
+  1. the host loop (one device sync per hop, like ``core/search.py``)
+     keeps fixed-shape beam / result / visited tensors and picks the top-W
+     frontier's neighbour positions;
+  2. the kernel (``csrc/graph_step.cu``) reads each candidate row straight
+     from the bucket block — dequantizing int8 codes on load — and emits
+     its raw distance (for routing) and predicate mask (for collection);
+  3. beam and result merges are stable ``(distance, position)`` top-k over
+     fixed shapes, so ties resolve to the lower position exactly as the
+     reference's ``top_k`` does.
+
+Stitching rule: the beam is seeded with the union of entry points of every
+temporally active segment in the bucket (``bucket_graph_seeds``), so a
+bucket holding many segments is traversed in ONE pass.  Quantized buckets
+traverse the same way; the caller reranks their results exactly at fp32.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import ref
+from .filtered_topk import FILTER_KINDS
+
+__all__ = ["beam_step_scores", "beam_step_plain", "bucket_graph_topk",
+           "launch_count", "reset_launch_count"]
+
+_KIND_CODE = {k: i for i, k in enumerate(FILTER_KINDS)}
+_MAX_M = 16
+INF = float("inf")
+_I32_MAX = int(np.iinfo(np.int32).max)
+
+_LAUNCHES = [0]
+_LAUNCH_LOCK = threading.Lock()
+
+
+def launch_count() -> int:
+    """CUDA launches of this kernel in this process (the twin never
+    counts)."""
+    return _LAUNCHES[0]
+
+
+def reset_launch_count() -> None:
+    with _LAUNCH_LOCK:
+        _LAUNCHES[0] = 0
+
+
+def _gather(pos, x, s, scales):
+    """Rows of the bucket block at flattened positions (the twin's
+    gather): ``(cand_x [b, c, d] fp32, cand_meta [b, c, m])``."""
+    rows, cap, d = x.shape
+    safe = pos.long().clamp_min(0)
+    cx = x.reshape(rows * cap, d)[safe]
+    if x.dtype == torch.int8:
+        cx = cx.float() * scales[safe // cap]
+    cm = s.reshape(rows * cap, s.shape[-1])[safe]
+    return cx, cm
+
+
+def beam_step_plain(q, pos, x, s, params, kind: str, metric: str = "l2",
+                    scales=None):
+    """Plain PyTorch twin of :func:`beam_step_scores`: gathers the
+    ``[b, c, d]`` candidate tile in torch, then the same expression."""
+    cx, cm = _gather(pos, x, s, scales)
+    d, ok = ref.beam_step_ref(q, cx, cm, kind, params, metric=metric)
+    miss = pos < 0
+    return (d.masked_fill(miss, INF),
+            ok.masked_fill(miss, 0))
+
+
+def _check(q, pos, x, s, params, kind, metric, scales):
+    if kind not in _KIND_CODE:
+        raise ValueError(f"unknown filter kind {kind!r}")
+    if metric not in ("l2", "ip"):
+        raise ValueError(f"unknown metric {metric!r}")
+    if x.dim() != 3 or s.dim() != 3 or q.dim() != 2 or pos.dim() != 2:
+        raise ValueError("beam_step_scores takes q [b, d], pos [b, c], "
+                         "x [rows, cap, d], s [rows, cap, m]")
+    rows, cap, d = x.shape
+    if s.shape[:2] != (rows, cap) or q.shape[1] != d \
+            or pos.shape[0] != q.shape[0]:
+        raise ValueError(f"shapes q {tuple(q.shape)}, pos {tuple(pos.shape)}"
+                         f", x {tuple(x.shape)}, s {tuple(s.shape)} disagree")
+    if params.dim() != 2 or params.shape[0] != 4 \
+            or params.shape[1] < max(s.shape[2], 2):
+        raise ValueError(f"params shape {tuple(params.shape)} must be "
+                         "[4, >=max(m, 2)]")
+    if x.dtype == torch.int8:
+        if scales is None or tuple(scales.shape) != (rows, d) \
+                or scales.dtype != torch.float32:
+            raise ValueError("an int8 block needs scales [rows, d] float32")
+    elif x.dtype != torch.float32:
+        raise TypeError(f"x must be float32 or int8, got {x.dtype}")
+    tensors = (q, pos, x, s, params) + ((scales,) if scales is not None
+                                        else ())
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on different devices: {devs}")
+
+
+def beam_step_scores(q, pos, x, s, params, kind: str, metric: str = "l2",
+                     scales=None):
+    """Score one traversal hop with the gather fused in: ``q [b, d]``
+    fp32, ``pos [b, c]`` flattened bucket positions (``-1`` = none), the
+    bucket block ``x [rows, cap, d]`` (fp32, or int8 codes with
+    ``scales [rows, d]``), its metadata ``s [rows, cap, m]`` and packed
+    ``params [4, mp]`` -> ``(dists [b, c] fp32 raw, ok [b, c] int32)``;
+    ``+inf`` / ``0`` where ``pos < 0``.
+
+    CPU tensors run :func:`beam_step_plain`; CUDA tensors launch the
+    kernel or raise."""
+    _check(q, pos, x, s, params, kind, metric, scales)
+    if x.device.type == "cpu":
+        return beam_step_plain(q, pos, x, s, params, kind, metric, scales)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    rows, cap, d = x.shape
+    b, c = pos.shape
+    m, mp = s.shape[2], params.shape[1]
+    if m > _MAX_M:
+        raise ValueError(f"the CUDA kernel reads at most {_MAX_M} metadata "
+                         f"columns, got {m}")
+    dev = x.device
+    out_d = torch.empty((b, c), dtype=torch.float32, device=dev)
+    out_ok = torch.empty((b, c), dtype=torch.int32, device=dev)
+    if b == 0 or c == 0:
+        return out_d, out_ok
+    q, x, s, params = (t.contiguous() for t in (q, x, s, params))
+    pos = pos.to(torch.int32).contiguous()
+    quantized = x.dtype == torch.int8
+    sc = scales.contiguous() if quantized else s
+    vec = int(d % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                 for t in (q, x, sc)))
+    from ._build import load
+    lib = load("graph_step")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_graph_step(
+            q.data_ptr(), pos.data_ptr(), x.data_ptr(), sc.data_ptr(),
+            s.data_ptr(), params.data_ptr(), out_d.data_ptr(),
+            out_ok.data_ptr(), b, c, d, cap, m, mp, _KIND_CODE[kind],
+            0 if metric == "l2" else 1, int(quantized), vec, stream)
+    if err != 0:
+        raise RuntimeError(f"graph_step CUDA launch failed: cudaError {err}")
+    with _LAUNCH_LOCK:
+        _LAUNCHES[0] += 1
+    return out_d, out_ok
+
+
+# ---------------------------------------------------------------------------
+# Traversal (host loop over fixed-shape device tensors)
+# ---------------------------------------------------------------------------
+def _smallest(d: torch.Tensor, k: int):
+    """Ascending top-k by (value, column): a stable sort, so equal values
+    keep the lower column first — the tie order of the reference's
+    ``top_k``."""
+    sd, sel = torch.sort(d, dim=1, stable=True)
+    return sd[:, :k], sel[:, :k]
+
+
+def _unique_mask(ids: torch.Tensor) -> torch.Tensor:
+    """[b, c] bool: first occurrence of each id in its row."""
+    sorted_ids, order = torch.sort(ids, dim=1, stable=True)
+    first = torch.ones_like(sorted_ids, dtype=torch.bool)
+    first[:, 1:] = sorted_ids[:, 1:] != sorted_ids[:, :-1]
+    return torch.zeros_like(first).scatter_(1, order, first)
+
+
+def _merge_topk(ids_a, d_a, ids_b, d_b, k: int):
+    ids = torch.cat([ids_a, ids_b], dim=1)
+    d = torch.cat([d_a, d_b], dim=1)
+    sd, sel = _smallest(d, k)
+    return torch.gather(ids, 1, sel), sd
+
+
+def _traverse(q, gids, nbrs, score, seeds, k: int, ef: int, width: int,
+              max_iters: int):
+    """Stitched best-first traversal over one bucket block.  ``gids
+    [npos]`` and ``nbrs [npos, degp]`` are the flattened gid and
+    adjacency blocks, ``score(pos [b, c]) -> (dists, ok)`` the hop kernel,
+    ``seeds [S]`` flattened positions shared by the batch.  Returns
+    ``(gids [b, k], dists [b, k], hops)`` ascending by (dist, gid)."""
+    dev = q.device
+    b = q.shape[0]
+    npos = gids.shape[0]
+    # ef-wide internal result list (classic ef-search); the caller gets
+    # the top-k slice
+    kc = max(k, ef)
+    rows_b = torch.arange(b, device=dev)[:, None]
+
+    def gather_score(pos):
+        gid = gids[pos.clamp_min(0)]
+        d, ok = score(pos)
+        return gid, d, ok.bool()
+
+    seed_b = seeds[None, :].expand(b, -1)
+    gid0, d0, ok0 = gather_score(seed_b)
+    valid0 = (seed_b >= 0) & (gid0 >= 0) & _unique_mask(seed_b)
+    droute0 = torch.where(valid0, d0, INF)
+    dres0 = torch.where(valid0 & ok0, d0, INF)
+
+    visited = torch.zeros((b, npos), dtype=torch.bool, device=dev)
+    visited[:, seeds[seeds >= 0]] = True
+
+    neg = torch.full((b, 1), -1, dtype=torch.long, device=dev)
+    inf = torch.full((b, 1), INF, device=dev)
+    beam_pos, beam_d = _merge_topk(
+        neg.expand(b, ef), inf.expand(b, ef),
+        torch.where(valid0, seed_b, -1), droute0, ef)
+    beam_exp = torch.zeros((b, ef), dtype=torch.bool, device=dev)
+    res_pos, res_d = _merge_topk(
+        neg.expand(b, kc), inf.expand(b, kc),
+        torch.where(torch.isfinite(dres0), seed_b, -1), dres0, kc)
+
+    hops = 0
+    while hops < max_iters:
+        frontier = torch.where(beam_exp | (beam_pos < 0), INF, beam_d)
+        kth = res_d[:, kc - 1]
+        if not bool((frontier.min(dim=1).values < kth).any()):
+            break
+        fsel, sel = _smallest(frontier, width)
+        exp_ok = fsel < kth[:, None]                 # only expand improving
+        exp_pos = torch.where(exp_ok, torch.gather(beam_pos, 1, sel), -1)
+        beam_exp = beam_exp.scatter(1, sel, True)
+
+        nb = nbrs[exp_pos.clamp_min(0)].long()       # [b, w, degp]
+        nb = torch.where(exp_pos[:, :, None] >= 0, nb, -1)
+        cand = nb.reshape(b, -1)
+
+        gid, d, ok = gather_score(cand)
+        safe = cand.clamp_min(0)
+        fresh = (cand >= 0) & (gid >= 0)
+        fresh &= ~torch.gather(visited, 1, safe)
+        fresh &= _unique_mask(cand)
+        droute = torch.where(fresh, d, INF)
+        dres = torch.where(fresh & ok, d, INF)
+        visited[rows_b.expand_as(cand)[fresh], cand[fresh]] = True
+
+        ids2 = torch.cat([beam_pos, torch.where(fresh, cand, -1)], dim=1)
+        dd2 = torch.cat([beam_d, droute], dim=1)
+        ee2 = torch.cat([beam_exp, torch.zeros_like(fresh)], dim=1)
+        beam_d, sel2 = _smallest(dd2, ef)
+        beam_pos = torch.gather(ids2, 1, sel2)
+        beam_exp = torch.gather(ee2, 1, sel2)
+
+        res_pos, res_d = _merge_topk(
+            res_pos, res_d, torch.where(torch.isfinite(dres), cand, -1),
+            dres, kc)
+        hops += 1
+
+    res_pos = torch.where(torch.isfinite(res_d), res_pos, -1)
+    g = torch.where(res_pos >= 0, gids[res_pos.clamp_min(0)].long(), -1)
+    # deterministic (dist, gid) output order: the scan path's host_topk
+    # invariant (a lexsort by two stable sorts)
+    key = torch.where(g >= 0, g, _I32_MAX)
+    o1 = torch.argsort(key, dim=1, stable=True)
+    o2 = torch.argsort(torch.gather(res_d, 1, o1), dim=1, stable=True)
+    order = torch.gather(o1, 1, o2)[:, :k]
+    return torch.gather(g, 1, order), torch.gather(res_d, 1, order), hops
+
+
+def bucket_graph_topk(queries, bv, seeds, filt, k: int, *, m: int,
+                      metric: str = "l2", ef: int = 64, width: int = 4,
+                      max_iters: int = 128
+                      ) -> Optional[Tuple[np.ndarray, np.ndarray, int]]:
+    """Traverse one bucket's stitched graph block.
+
+    ``queries [b, d]``; ``bv`` a ``BucketView`` carrying ``nbrs``;
+    ``seeds`` the flattened positions from ``bucket_graph_seeds``; ``m``
+    the true metadata width.  Returns ``(gids [b, k] int64 with -1
+    misses, dists [b, k] fp32 ascending, hops)`` — fp32 buckets emit exact
+    distances, quantized buckets distances to the dequantized vectors that
+    the caller reranks.  Returns ``None`` when the filter has no kernel
+    encoding or the bucket has no usable graph / seeds (the caller falls
+    back to the scan path)."""
+    from .ops import encode_filter
+    if bv.nbrs is None or len(seeds) == 0:
+        return None
+    enc = encode_filter(filt, m, mpad=max(m, 2))
+    if enc is None:
+        return None
+    kind, params = enc
+    dev = bv.gids.device
+    q = torch.as_tensor(np.atleast_2d(np.asarray(queries, np.float32)),
+                        device=dev)
+    k = int(k)
+    ef = max(int(ef), k)
+    pj = torch.as_tensor(params, device=dev)
+    block = bv.codes if bv.quantized else bv.x
+
+    def score(pos):
+        return beam_step_scores(q, pos, block, bv.s, pj, kind, metric,
+                                scales=bv.scales)
+    rows, cap = bv.gids.shape
+    g, dd, hops = _traverse(
+        q, bv.gids.reshape(-1), bv.nbrs.reshape(rows * cap, -1),
+        score, torch.as_tensor(np.asarray(seeds, np.int64), device=dev),
+        k, ef, int(width), int(max_iters))
+    return (g.cpu().numpy().astype(np.int64),
+            dd.cpu().numpy().astype(np.float32), hops)

@@ -7,7 +7,7 @@ there is no other fallback.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -17,10 +17,14 @@ from ..core.filters import (BallFilter, BoxFilter, ComposeFilter, Filter,
 from ..device import as_tensor, resolve_device
 from .distance import pairwise_dist_call
 from .filtered_topk import filtered_topk_call
+from .quant_topk import quant_topk_call
 from .ref import PAD_META
 
 __all__ = ["pairwise_dist", "filtered_topk", "next_pow2", "round_up",
-           "encode_filter", "exact_filtered_search", "PAD_META"]
+           "encode_filter", "exact_filtered_search", "PAD_META",
+           "block_layout", "sharded_filtered_topk",
+           "sharded_filtered_topk_grouped", "sharded_quant_filtered_topk",
+           "warm_sharded_shapes", "kernels_loaded"]
 
 _POS = 1e30
 
@@ -166,19 +170,10 @@ def filtered_topk(q, x, s, filt: Optional[Filter], k: int,
     q = as_tensor(q, dev, torch.float32)
     x = as_tensor(x, dev, torch.float32)
     s = as_tensor(s, dev, torch.float32)
-    m = s.shape[1]
-    mp = max(m, 2)
-    enc = encode_filter(filt, m, mpad=mp)
-    if enc is None:
-        ok = filt.contains(s)
-        s = torch.where(ok[:, None], s, torch.full_like(s, PAD_META))
-        kind, params = encode_filter(None, m, mpad=mp)
-    else:
-        kind, params = enc
+    kind, params, s = _encode_stack(filt, s, s.shape[1])
     kpad = next_pow2(max(k, 8))
-    dd, ids = filtered_topk_call(q[None], x[None], s[None],
-                                 as_tensor(params, dev)[None], kind, kpad,
-                                 metric=metric)
+    dd, ids = filtered_topk_call(q[None], x[None], s[None], params[None],
+                                 kind, kpad, metric=metric)
     return ids[0, :, :k], dd[0, :, :k]
 
 
@@ -186,3 +181,129 @@ def exact_filtered_search(q, x, s, filt: Optional[Filter], k: int,
                           metric: str = "l2", device=None):
     """Ground-truth generator: exact filtered top-k at kernel speed."""
     return filtered_topk(q, x, s, filt, k, metric=metric, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Shard-stack dispatch: block layouts, launch bookkeeping, warming
+# ---------------------------------------------------------------------------
+def block_layout(mode: str, rows: int, cap: int, d: int, m: int
+                 ) -> Dict[str, Tuple[tuple, torch.dtype, object]]:
+    """The device block layout of one bucket of the shard pack — the
+    shared rule between the pack and the kernels (the port's stand-in for
+    the reference's ``quant_meta_rows``).  ``{name: (shape, dtype, fill)}``:
+
+    - ``"fp32"``: ``x [rows, cap, d]`` fp32 and ``s [rows, cap, m]`` fp32;
+    - ``"int8"``: ``codes [rows, cap, d]`` int8 row-major, ``s [rows, cap,
+      m]`` fp32, ``xsq [rows, cap]`` fp32 dequantized squared norms and
+      ``scales [rows, d]`` fp32 per-row (per-segment) scales;
+
+    plus ``gids [rows, cap]`` int32 in both.  Padding and dead rows carry
+    ``PAD_META`` metadata, so every predicate rejects them.  No lane or
+    sublane padding: a point costs ``4d + 4m + 4`` bytes (fp32) or
+    ``d + 4m + 8`` (int8)."""
+    out = {"s": ((rows, cap, m), torch.float32, PAD_META),
+           "gids": ((rows, cap), torch.int32, -1)}
+    if mode == "fp32":
+        out["x"] = ((rows, cap, d), torch.float32, 0.0)
+    elif mode == "int8":
+        out["codes"] = ((rows, cap, d), torch.int8, 0)
+        out["xsq"] = ((rows, cap), torch.float32, 0.0)
+        out["scales"] = ((rows, d), torch.float32, 0.0)
+    else:
+        raise ValueError(f"unknown block mode {mode!r}")
+    return out
+
+
+def _encode_stack(filt: Optional[Filter], ss: torch.Tensor, m: int):
+    """Filter -> ``(kind, params tensor, metadata stack)``.  A filter
+    without a kernel encoding is evaluated with the filter object and the
+    rows it rejects get ``PAD_META`` (kind ``none``): the single route,
+    so every distance comes from the same kernel."""
+    mp = max(m, 2)
+    enc = encode_filter(filt, m, mpad=mp)
+    if enc is None:
+        ok = filt.contains(ss[..., :m])
+        ss = torch.where(ok[..., None], ss, torch.full_like(ss, PAD_META))
+        enc = encode_filter(None, m, mpad=mp)
+    kind, params = enc
+    return kind, as_tensor(params, ss.device), ss
+
+
+def sharded_filtered_topk(q, xs, ss, filt: Optional[Filter], k: int,
+                          metric: str = "l2", m: Optional[int] = None):
+    """Shard-parallel fused filtered top-k: kernel B1 over a ``[g, n, d]``
+    / ``[g, n, m]`` stack of ``g`` equal-capacity shard rows (the shard
+    axis is B1's batch axis), one launch for the whole stack.  Ragged
+    rows are padded with ``PAD_META`` metadata, which fails every
+    predicate.  Returns ``(ids [g, bq, k], dists [g, bq, k])`` with
+    shard-local ids (``-1`` misses) ascending by (distance, id)."""
+    dev = xs.device
+    q = as_tensor(q, dev, torch.float32)
+    m = ss.shape[2] if m is None else int(m)
+    kind, params, ss = _encode_stack(filt, ss, m)
+    kpad = next_pow2(max(int(k), 8))
+    dd, ids = filtered_topk_call(q[None], xs, ss, params[None], kind, kpad,
+                                 metric=metric)
+    return ids[:, :, :k], dd[:, :, :k]
+
+
+def sharded_filtered_topk_grouped(groups, xs, ss, metric: str = "l2",
+                                  m: Optional[int] = None):
+    """Several request groups against one shard stack — the grouped read
+    path, a later slice of the port."""
+    raise NotImplementedError(
+        "sharded_filtered_topk_grouped (grouped queries) is not ported to "
+        "repro_torch yet (ROADMAP Queue A item 11)")
+
+
+def sharded_quant_filtered_topk(q, codes, ss, xsq, scales,
+                                filt: Optional[Filter], k: int,
+                                metric: str = "l2", m: Optional[int] = None):
+    """Shard-parallel asymmetric-distance filtered top-k over int8 codes
+    (kernel B3).  ``codes [g, n, d]`` int8, ``ss [g, n, m]``, ``xsq [g,
+    n]``, ``scales [g, d]``: each shard row's scales are folded into the
+    query (``(q * scale) . code == q . dequantize(code)``), so the block
+    is only read at int8.  For L2 the kernel's partial ``xsq − 2·ip`` gets
+    ``‖q‖²`` added here, which makes the distances those to the
+    dequantized vectors.  Returns ``(ids [g, bq, k], dists [g, bq, k])``
+    — an over-fetched candidate list for the exact rerank."""
+    dev = codes.device
+    q = as_tensor(q, dev, torch.float32)
+    m = ss.shape[2] if m is None else int(m)
+    kind, params, ss = _encode_stack(filt, ss, m)
+    qn = torch.sum(q * q, dim=1)
+    qs = q[None, :, :] * scales[:, None, :]          # scale-folded queries
+    kpad = next_pow2(max(int(k), 8))
+    dd, ids = quant_topk_call(qs, codes, ss, xsq, params, kind, kpad,
+                              metric=metric)
+    if metric == "l2":
+        dd = torch.where(torch.isfinite(dd), dd + qn[None, :, None], dd)
+    return ids[:, :, :k], dd[:, :, :k]
+
+
+# The library each bucket block mode scans with.
+_SCAN_LIBRARY = {"fp32": "filtered_topk", "int8": "quant_topk"}
+
+
+def kernels_loaded(mode: str) -> bool:
+    """Whether the scan kernel of a bucket block mode (``"fp32"`` or
+    ``"int8"``) is built and loaded in this process (``BucketStats``'
+    ``cache_hit``).  A CUDA launch costs the same on every block shape,
+    so loading the library is the only first-use cost."""
+    from ._build import loaded
+    return loaded(_SCAN_LIBRARY[mode])
+
+
+def warm_sharded_shapes(mode: str, device, graph: bool = False) -> int:
+    """Build and load the kernels a pack of this block mode reads with —
+    its scan kernel, plus B4 when ``graph`` — off the query path.  Does
+    nothing for a CPU pack (the twins need no build).  Returns the
+    libraries loaded by this call."""
+    if torch.device(device).type != "cuda":
+        return 0
+    from ._build import load, loaded
+    names = [_SCAN_LIBRARY[mode]] + (["graph_step"] if graph else [])
+    fresh = [name for name in names if not loaded(name)]
+    for name in fresh:
+        load(name)
+    return len(fresh)

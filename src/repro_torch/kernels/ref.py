@@ -7,14 +7,40 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["pairwise_sq_l2", "pairwise_neg_ip", "filter_mask_ref",
-           "filtered_topk_ref", "FILTER_KINDS", "PAD_META"]
+__all__ = ["pairwise_sq_l2", "pairwise_neg_ip", "inner_products",
+           "filter_mask_ref", "filtered_topk_ref", "quant_filtered_topk_ref",
+           "beam_step_ref", "topk_by_dist_id", "FILTER_KINDS", "PAD_META"]
 
 FILTER_KINDS = ("none", "box", "ball", "box_not_ball", "box_ball")
 _POS = 1e30
 # Metadata sentinel for padding / dead rows: every filter kind (including
 # "none") rejects rows whose metadata carries this value.
 PAD_META = 2e30
+# Elements of one [bq, chunk, d] product in the CPU inner-product loop.
+_CPU_PRODUCT_ELEMS = 1 << 22
+
+
+def inner_products(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """[bq, d] x [n, d] -> fp32 inner products [bq, n].
+
+    On the CPU each entry is a row-wise sum of the elementwise product,
+    whose summation order depends on ``d`` alone: the BLAS blocks a
+    ``[bq, n]`` product differently for other ``bq`` and ``n``, and the
+    port's invariants (a shard stack answers bit-for-bit like the
+    monolithic scan, an incremental pack like a cold build) are checked
+    on the CPU.  On the card, where the twin is only a yardstick held
+    within a tolerance, it is one matrix product."""
+    qf, xf = q.float(), x.float()
+    if qf.device.type != "cpu":
+        return qf @ xf.T
+    bq, d = qf.shape
+    n = xf.shape[0]
+    out = qf.new_empty((bq, n))
+    step = max(1, _CPU_PRODUCT_ELEMS // max(bq * d, 1))
+    for c0 in range(0, n, step):
+        out[:, c0:c0 + step] = (qf[:, None, :]
+                                * xf[None, c0:c0 + step, :]).sum(-1)
+    return out
 
 
 def pairwise_sq_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -23,13 +49,12 @@ def pairwise_sq_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     qf, xf = q.float(), x.float()
     qn = torch.sum(qf * qf, dim=-1)
     xn = torch.sum(xf * xf, dim=-1)
-    ip = qf @ xf.T
-    return qn[:, None] - 2.0 * ip + xn[None, :]
+    return qn[:, None] - 2.0 * inner_products(qf, xf) + xn[None, :]
 
 
 def pairwise_neg_ip(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Negated inner product (so smaller = more similar), fp32 accumulation."""
-    return -(q.float() @ x.float().T)
+    return -inner_products(q, x)
 
 
 def filter_mask_ref(s: torch.Tensor, kind: str, params: torch.Tensor
@@ -89,3 +114,35 @@ def filtered_topk_ref(q, x, s, kind: str, params, k: int, metric: str = "l2"):
     ok = filter_mask_ref(s, kind, params)
     d = torch.where(ok[None, :], d, torch.full_like(d, float("inf")))
     return topk_by_dist_id(d, k)
+
+
+def quant_filtered_topk_ref(qs, codes, s, xsq, kind: str, params, k: int,
+                            metric: str = "l2"):
+    """Asymmetric int8 filtered top-k oracle (kernel B3's semantics):
+    scale-folded queries ``qs [bq, d]`` against int8 ``codes [n, d]`` in
+    fp32; L2 emits the partial distance ``xsq − 2·ip`` (the caller adds
+    ``‖q‖²``), IP emits ``−ip``.  Returns ``(dists [bq, k], ids [bq, k])``
+    ascending by (dist, id), ``+inf`` / ``-1`` for misses."""
+    ip = inner_products(qs, codes.float())
+    d = xsq.float()[None, :] - 2.0 * ip if metric == "l2" else -ip
+    ok = filter_mask_ref(s, kind, params)
+    d = torch.where(ok[None, :], d, torch.full_like(d, float("inf")))
+    return topk_by_dist_id(d, k)
+
+
+def beam_step_ref(q, cand_x, cand_meta, kind: str, params,
+                  metric: str = "l2"):
+    """One traversal hop's scores (kernel B4's semantics) over a gathered
+    tile: ``q [b, d]``, ``cand_x [b, c, d]`` fp32, ``cand_meta [b, c, m]``
+    -> ``(dists [b, c] raw, ok [b, c] int32 predicate mask)``.  L2 is
+    ``(‖x‖² − 2·ip) + ‖q‖²`` with ‖x‖² recomputed from the gathered row."""
+    qf, cx = q.float(), cand_x.float()
+    ip = (cx * qf[:, None, :]).sum(-1)
+    if metric == "l2":
+        qn = (qf * qf).sum(-1)
+        xn = (cx * cx).sum(-1)
+        d = xn - 2.0 * ip + qn[:, None]
+    else:
+        d = -ip
+    ok = filter_mask_ref(cand_meta, kind, params)
+    return d, ok.to(torch.int32)

@@ -5,8 +5,10 @@
                   global point ids, plus the chunked GC-able ``PointStore``
 - ``manager``     seal policy, off-path compaction (plan/execute/publish
                   with an epoch guard), TTL expiry, point-store GC
-- ``query``       temporal segment pruning + per-segment graph search +
-                  exact ``(gid, dist)`` merge
+- ``query``       temporal segment pruning + per-segment graph search or
+                  the sharded pack (scan / int8 scan + rerank / stitched
+                  traversal) + exact ``(gid, dist)`` merge
+- ``planner``     per-bucket scan-vs-traversal cost planner
 - ``resilience``  supervised background workers and query deadlines
 """
 from .manager import CompactionPlan, SegmentManager, StreamConfig

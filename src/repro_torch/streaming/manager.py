@@ -25,10 +25,18 @@ are re-applied to it before the swap, and the query path additionally
 filters its merged result through the liveness bitmap — so a point deleted
 before a query began is never returned.
 
-This port covers the default configuration (``n_shards=0``,
-``read_path="scan"``, no quantization, no device budget, no persistence);
-the options of later slices raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+Sharded read path: with ``StreamConfig(n_shards >= 1)`` the sealed
+segments are also kept in a size-bucketed device pack
+(``repro_torch.distributed.segment_shards``), maintained by
+O(changed-segment) deltas at every seal / publish / expiry under the lock
+(``_apply_pack_delta``); queries search an immutable view of it, in fp32
+(kernel B1), int8 with an exact rerank (``quantize="int8"``, kernel B3)
+or by stitched graph traversal chosen per bucket by the cost planner
+(``read_path="graph"|"auto"``, kernel B4).
+
+Tiering (``device_budget_bytes``), persistence, fault injection and
+grouped queries are options of later slices: they raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -63,17 +71,29 @@ class StreamConfig:
     compact_max_segments: int = 8         # merge adjacent pairs above this
     compact_deleted_fraction: float = 0.3  # GC a segment above this
     # Sealed-segment read path: 0 = per-segment stitched-graph beam search;
-    # >= 1 = the sharded kernel scan (not ported yet).
+    # >= 1 = partition each sealed segment into this many shards and scan
+    # the size-bucketed pack with the fused kernel (exact; on one card the
+    # shard axis is the kernels' batch axis).
     n_shards: int = 0
+    # True: the bucketed pack, updated by O(changed-segment) deltas;
+    # False: the monolithic pack, rebuilt whole on every epoch bump.
     incremental_pack: bool = True
     pack_cap_multiple: int = 256          # bucket row-capacity quantum
-    quantize: Optional[str] = None        # int8 read path (not ported yet)
+    # "int8" (requires n_shards >= 1 and incremental_pack): per-dimension
+    # scales fit at seal / compaction, int8 codes on the card, an
+    # over-fetching kernel scan and an exact fp32 rerank.
+    quantize: Optional[str] = None
     rerank_multiple: int = 4              # quantized over-fetch factor
-    read_path: str = "scan"               # "graph" / "auto" not ported yet
-    planner_costs: Optional[object] = None
+    # "scan" always scans; "graph" / "auto" (require n_shards >= 1 and
+    # incremental_pack) also stage each segment's graph into the pack and
+    # traverse it — forced, or where the cost planner prices it cheaper.
+    read_path: str = "scan"
+    planner_costs: Optional[object] = None  # PlannerCosts override
     graph_ef: int = 128                   # traversal beam width
     graph_width: int = 8                  # expansions per traversal hop
     graph_max_iters: int = 256            # traversal hop budget
+    # Build and load the pack's kernels at seal / publish time (off the
+    # query path).
     pack_warm_compile: bool = True
     device_budget_bytes: Optional[int] = None   # tiering (not ported yet)
     tier_window_history: int = 12
@@ -132,15 +152,28 @@ class SegmentManager:
         self.d = int(d)
         self.m = int(m)
         self.cfg = cfg
-        if cfg.n_shards >= 1:
-            raise _unported("the sharded read path (n_shards >= 1)", 5)
         if cfg.quantize is not None:
-            raise _unported(f"quantize={cfg.quantize!r}", 6)
+            from ..quant import QUANT_KINDS
+            if cfg.quantize not in QUANT_KINDS:
+                raise ValueError(f"unknown quantize kind {cfg.quantize!r}; "
+                                 f"supported: {QUANT_KINDS}")
+            if cfg.n_shards < 1:
+                raise ValueError("quantize requires the sharded read path "
+                                 "(StreamConfig.n_shards >= 1)")
+            if not cfg.incremental_pack:
+                raise ValueError("quantize requires incremental_pack=True "
+                                 "(the monolithic pack is fp32-only)")
+        if cfg.read_path not in ("scan", "graph", "auto"):
+            raise ValueError(f"unknown read_path {cfg.read_path!r}; "
+                             "supported: 'scan' | 'graph' | 'auto'")
         if cfg.read_path != "scan":
-            if cfg.read_path not in ("graph", "auto"):
-                raise ValueError(f"unknown read_path {cfg.read_path!r}; "
-                                 "supported: 'scan' | 'graph' | 'auto'")
-            raise _unported(f"read_path={cfg.read_path!r}", 7)
+            if cfg.n_shards < 1:
+                raise ValueError("read_path='graph'/'auto' requires the "
+                                 "sharded read path (n_shards >= 1)")
+            if not cfg.incremental_pack:
+                raise ValueError("read_path='graph'/'auto' requires "
+                                 "incremental_pack=True (graph blocks ride "
+                                 "the bucketed pack)")
         if cfg.persist_dir is not None:
             raise _unported("persistence (persist_dir)", 8)
         if cfg.device_budget_bytes is not None:
@@ -155,6 +188,15 @@ class SegmentManager:
         self._lock = threading.RLock()
         self._next_seg_id = 0
         self._compact_thread: Optional[threading.Thread] = None
+        # Cached device pack for the sharded read path: a BucketedShardPack
+        # kept in sync by _apply_pack_delta at every segment-list
+        # transition (or a monolithic ShardPack rebuilt per epoch with
+        # incremental_pack off).  None until the first sharded query
+        # cold-builds it.
+        self._pack = None
+        # Most recent {cap: PlanDecision} of the cost planner
+        # (read_path != "scan" only).
+        self.last_plan = None
         self.store = PointStore(d, m, chunk=cfg.store_chunk)
         self._alive = np.zeros(1024, bool)
         self.now = -math.inf                        # event-time watermark
@@ -255,6 +297,8 @@ class SegmentManager:
             self.counters["deleted"] += hits
             self.obs.registry.counter("lifecycle_deleted_points_total").inc(
                 len(live))
+            if self._pack is not None:
+                self._pack.mark_dead(live)
         return hits
 
     # ------------------------------------------------------------------
@@ -272,8 +316,9 @@ class SegmentManager:
         return self.seal() if self.should_seal() else None
 
     def seal(self) -> Optional[SealedSegment]:
-        """Freeze the delta's live points into an immutable indexed
-        segment."""
+        """Freeze the delta's live points into an immutable indexed segment
+        (with ``cfg.quantize``, also fit its scales and int8 codes here —
+        the segment is immutable from now on)."""
         with self._lock:
             xl, sl, gl = self.delta.live_points()
             self.delta.reset()
@@ -281,7 +326,8 @@ class SegmentManager:
                 return None
             seg = SealedSegment.from_points(self._next_seg_id, xl, sl, gl,
                                             self.time_dim, self.cfg.index_cfg,
-                                            device=self.device)
+                                            device=self.device,
+                                            quantize=self.cfg.quantize)
             self._next_seg_id += 1
             self.segments.append(seg)
             self.segments.sort(key=lambda g: g.t_min)
@@ -290,7 +336,146 @@ class SegmentManager:
             self.obs.registry.counter("lifecycle_sealed_total").inc()
             self.obs.registry.counter("lifecycle_sealed_points_total").inc(
                 len(gl))
+            self._apply_pack_delta((), (seg,))
+        self._warm_pack()
         return seg
+
+    # ------------------------------------------------------------------
+    # Sharded read path: the bucketed device pack
+    # ------------------------------------------------------------------
+    def _shard_source(self, seg: SealedSegment):
+        """One segment's live points (plus its codec payload and graph when
+        the quantized / graph read paths are on) as a pack delta input,
+        built from ONE :meth:`~SealedSegment.live_snapshot`."""
+        from ..distributed.segment_shards import SegmentShardSource
+        nbrs = entries = None
+        if self.cfg.read_path != "scan":
+            xl, sl, gl, quant, graph = seg.live_snapshot(with_graph=True)
+            nbrs, entries = graph.nbrs, graph.entries
+        else:
+            xl, sl, gl, quant = seg.live_snapshot()
+        codes = scales = xsq = None
+        if self.cfg.quantize is not None and quant is not None:
+            codes, scales, xsq = quant.codes, quant.scales, quant.xsq
+        return SegmentShardSource(seg.seg_id, xl, sl, gl, seg.t_min,
+                                  seg.t_max, codes=codes, scales=scales,
+                                  xsq=xsq, nbrs=nbrs, entries=entries)
+
+    @property
+    def graph_degree(self) -> Optional[int]:
+        """Adjacency width staged into pack graph blocks (None = scan-only
+        pack): ``n_layers`` times one layer's edge width (intra degree +
+        cross-edge budget), capped at 64 — after per-point dedupe the real
+        degree sits well below the bound, and every padded ``-1`` lane is
+        wasted work in each traversal hop."""
+        if self.cfg.read_path == "scan":
+            return None
+        ic = self.cfg.index_cfg
+        return min(64, int(ic.n_layers
+                           * (ic.m_intra + 2 * self.m * ic.m_cross)))
+
+    def _warm_pack(self) -> int:
+        """Build and load the kernels the pack reads with, at the end of a
+        seal / publish, so the first query does not pay for ``nvcc`` or
+        the library load.  Returns the libraries loaded."""
+        if not self.cfg.pack_warm_compile or self.cfg.n_shards < 1:
+            return 0
+        from ..kernels.ops import warm_sharded_shapes
+        return warm_sharded_shapes("int8" if self.cfg.quantize else "fp32",
+                                   self.device,
+                                   graph=self.cfg.read_path != "scan")
+
+    def _apply_pack_delta(self, removed, added) -> None:
+        """Keep the cached bucketed pack in sync with one segment-list
+        transition (called under the lock, after the epoch bump): victims
+        tombstone their slots, each added segment's live points append
+        into their capacity bucket.  With ``incremental_pack`` off (or a
+        monolithic pack cached) the pack is invalidated and cold-rebuilt
+        on the next sharded query.  A delta failure also invalidates it
+        (recorded by the supervisor), so queries stay correct."""
+        pack = self._pack
+        if pack is None:
+            return
+        from ..distributed.segment_shards import BucketedShardPack
+        if (self.cfg.n_shards < 1 or not self.cfg.incremental_pack
+                or not isinstance(pack, BucketedShardPack)
+                or pack.quantize != self.cfg.quantize
+                or pack.graph_degree != self.graph_degree):
+            self._pack = None
+            return
+        try:
+            pack.metrics = self.obs.registry
+            for seg in removed:
+                pack.remove_segment(seg.seg_id)
+            for seg in added:
+                src = self._shard_source(seg)
+                if len(src.gids):
+                    pack.add_segment(src)
+            pack.epoch = self.epoch
+            self._update_pack_gauges(pack)
+        except Exception as exc:
+            self.supervisor.note_error("pack_delta", exc)
+            self._pack = None
+
+    def _update_pack_gauges(self, pack) -> None:
+        """Refresh the device-pack occupancy gauges after a transition
+        (caller holds the lock).  Gauges of released capacity classes are
+        dropped rather than left at their last value."""
+        reg = self.obs.registry
+        if not reg.enabled or not hasattr(pack, "bucket_stats"):
+            return
+        reg.drop_prefix("pack_bucket_")
+        reg.gauge("pack_nbytes").set(pack.nbytes)
+        reg.gauge("pack_segments").set(pack.n_segments)
+        for cap, row in pack.bucket_stats().items():
+            for key in ("rows", "live_rows", "segments", "resident"):
+                reg.gauge(f'pack_bucket_{key}{{cap="{cap}"}}').set(row[key])
+
+    def shard_pack(self, epoch: int, segments: List[SealedSegment]):
+        """The consistent shard-pack read state for ``(epoch, segments)``:
+        an immutable ``PackView`` of the delta-maintained bucketed pack (or
+        the monolithic ``ShardPack`` with ``incremental_pack`` off),
+        cold-building when no cached pack matches the epoch.
+
+        The cold build runs outside the lock; installation re-checks the
+        epoch and syncs the pack against deletions that landed mid-build.
+        The view itself is captured under the lock, so it never interleaves
+        with a concurrent delta."""
+        from ..distributed.segment_shards import (BucketedShardPack,
+                                                  build_bucketed_pack,
+                                                  build_shard_pack)
+
+        def _read_state(pack):
+            return (pack.view() if isinstance(pack, BucketedShardPack)
+                    else pack)
+
+        with self._lock:
+            pack = self._pack
+            if pack is not None and pack.epoch == epoch:
+                return _read_state(pack)
+        sources = []
+        for seg in segments:
+            src = self._shard_source(seg)
+            if len(src.gids):
+                sources.append(src)
+        if not sources:
+            return None
+        if self.cfg.incremental_pack:
+            pack = build_bucketed_pack(
+                sources, self.cfg.n_shards, epoch,
+                cap_multiple=self.cfg.pack_cap_multiple,
+                quantize=self.cfg.quantize, metrics=self.obs.registry,
+                graph_degree=self.graph_degree, device=self.device)
+        else:
+            pack = build_shard_pack(sources, self.cfg.n_shards, epoch,
+                                    cap_multiple=self.cfg.pack_cap_multiple,
+                                    device=self.device)
+        with self._lock:
+            pack.sync_alive(self.alive)
+            if self.epoch == epoch:
+                self._pack = pack
+                self._update_pack_gauges(pack)
+            return _read_state(pack)
 
     # ------------------------------------------------------------------
     # Retention / TTL
@@ -304,23 +489,24 @@ class SegmentManager:
             cutoff = (self.now if now is None else float(now)) - self.cfg.ttl
             dropped = 0
             kept: List[SealedSegment] = []
-            expired = 0
+            expired: List[SealedSegment] = []
             for seg in self.segments:
                 if seg.t_max < cutoff:
                     self._alive[seg.gids] = False
                     dropped += seg.n_live
                     self.counters["expired_segments"] += 1
-                    expired += 1
+                    expired.append(seg)
                 else:
                     kept.append(seg)
             if len(kept) != len(self.segments):
                 self.segments = kept
                 self.epoch += 1
+                self._apply_pack_delta(expired, ())
             gl = self.delta.expire_before(cutoff)
             self._alive[gl] = False
             self.counters["expired_points"] += dropped + len(gl)
             reg = self.obs.registry
-            reg.counter("lifecycle_expired_segments_total").inc(expired)
+            reg.counter("lifecycle_expired_segments_total").inc(len(expired))
             reg.counter("lifecycle_expired_points_total").inc(
                 dropped + len(gl))
         return dropped + len(gl)
@@ -366,7 +552,7 @@ class SegmentManager:
         t0 = time.perf_counter()
         built: List[Tuple[List[SealedSegment], Optional[SealedSegment]]] = []
         for seg in plan.gc:
-            built.append(([seg], seg.compacted()))
+            built.append(([seg], seg.compacted(quantize=self.cfg.quantize)))
         for grp in plan.merges:
             built.append((grp, self._merge_group(grp)))
         self.obs.registry.counter("compaction_executed_ops_total").inc(
@@ -401,13 +587,22 @@ class SegmentManager:
                 ops += 1 if len(victims) == 1 else len(victims) - 1
             out = [g for g in out if g.n_live > 0]
             if ops > 0 or len(out) != len(self.segments):
+                pre_ids = {id(g): g for g in self.segments}
+                post_ids = {id(g) for g in out}
                 out.sort(key=lambda g: g.t_min)
                 self.segments = out
                 self.epoch += 1
+                # pack delta = the object-identity diff of the swap (merge
+                # victims, GC rewrites reusing a seg_id, and all-dead
+                # segments dropped from the list)
+                self._apply_pack_delta(
+                    [g for oid, g in pre_ids.items() if oid not in post_ids],
+                    [g for g in out if id(g) not in pre_ids])
             if ops:
                 self.counters["compactions"] += 1
                 self.obs.registry.counter(
                     "compaction_published_ops_total").inc(ops)
+        self._warm_pack()
         return ops
 
     def compact(self) -> int:
@@ -461,7 +656,8 @@ class SegmentManager:
         return SealedSegment.from_points(sid, np.concatenate(xs),
                                          np.concatenate(ss), gids,
                                          self.time_dim, self.cfg.index_cfg,
-                                         device=self.device)
+                                         device=self.device,
+                                         quantize=self.cfg.quantize)
 
     def maintenance(self, async_compaction: bool = False) -> dict:
         """One lifecycle tick: seal (if due) + expire + compact + store GC.
@@ -518,9 +714,11 @@ class SegmentManager:
         metrics block for dashboards.  Strict-JSON safe end-to-end."""
         from ..obs.metrics import json_sanitize
         with self._lock:
+            pack = self._pack
             return json_sanitize({
-                "pack_nbytes": 0,
-                "pack_buckets": {},
+                "pack_nbytes": 0 if pack is None else int(pack.nbytes),
+                "pack_buckets": (pack.bucket_stats()
+                                 if hasattr(pack, "bucket_stats") else {}),
                 "n_total": self.n_total,
                 "n_live": self.n_live,
                 "delta_live": self.delta.n_live,

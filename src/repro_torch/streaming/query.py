@@ -3,8 +3,11 @@
 Planning prunes segments whose ``[t_min, t_max]`` span misses the filter's
 temporal bounds (extracted from its bounding box — half-open
 ``IntervalFilter`` windows work directly).  The query then fans out to the
-delta buffer (exact fused-kernel scan) and to every unpruned sealed
-segment (one stitched-graph beam search each).
+delta buffer (exact fused-kernel scan) and the sealed segments — either one
+stitched-graph beam search per segment (default) or, with
+``StreamConfig.n_shards >= 1``, one kernel launch per non-empty,
+temporally unpruned capacity *bucket* of the manager's size-bucketed shard
+pack (temporal pruning skips whole device blocks).
 
 Merging is a direct exact merge of the per-segment ``(gid, dist)`` pairs:
 every path reports the same fp32 distance for the same point and global ids
@@ -13,17 +16,33 @@ candidate lists and taking the global top-k needs no re-rank.  The merged
 result is finally filtered through the manager's liveness bitmap, which is
 what makes query results immune to racing deletions/compactions.
 
-The sharded, quantized and graph read paths and the grouped (continuous
-batching) entry point of the reference are not ported yet.
+With ``StreamConfig(quantize="int8")`` the sealed-pack scan is two-stage:
+the per-bucket launches run kernel B3 over int8 codes and over-fetch
+``rerank_multiple * k`` candidates, which are reranked exactly at fp32
+(``repro_torch.quant.rerank``) before entering the same merge.
+
+With ``read_path="auto"|"graph"`` each sealed-pack dispatch first runs the
+cost planner (``repro_torch.streaming.planner``): buckets planned ``scan``
+go through the exact same kernel calls as above, buckets planned ``graph``
+run the stitched beam traversal (``repro_torch.kernels.graph_topk``,
+kernel B4 per hop) seeded with the entry points of every temporally
+unpruned segment in the bucket.  fp32 graph blocks carry exact distances
+and join the merge directly; quantized graph blocks go through the same
+exact fp32 rerank.
+
+The grouped (continuous batching) entry point of the reference is not
+ported yet (ROADMAP Queue A item 11).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 from ..core import Filter
+from ..distributed.segment_shards import host_topk
 from ..obs.metrics import NULL_REGISTRY
 from ..obs.trace import NULL_TRACE, block_ready
 from .resilience import Deadline, QueryResult
@@ -41,42 +60,6 @@ def temporal_bounds(filt: Optional[Filter], time_dim: int
     if time_dim >= len(lo):
         return -np.inf, np.inf
     return float(lo[time_dim]), float(hi[time_dim])
-
-
-def host_topk(g: np.ndarray, d: np.ndarray, k: int
-              ) -> Tuple[np.ndarray, np.ndarray]:
-    """Exact host-side top-k over concatenated ``(gid, dist)`` candidate
-    rows: ``argpartition`` narrows each row to ``k`` candidates, then one
-    ``lexsort`` orders the slice by ``(dist, gid)``.  Rows where a finite
-    distance tie straddles the k-th position are re-selected by the full
-    ``(dist, gid)`` order, so the result does not depend on block order.
-    Returns ``(gids [b, k] int64, dists [b, k] fp32)`` padded with
-    ``-1`` / ``+inf``."""
-    d = np.where(g >= 0, np.asarray(d, np.float32), np.inf)
-    g = np.asarray(g, np.int64)
-    if d.shape[1] > k:
-        part = np.argpartition(d, k - 1, axis=1)
-        g_sel = np.take_along_axis(g, part[:, :k], axis=1)
-        d_sel = np.take_along_axis(d, part[:, :k], axis=1)
-        kth = d_sel.max(axis=1)
-        d_rest = np.take_along_axis(d, part[:, k:], axis=1)
-        # +inf boundary ties are harmless (every +inf selection emits
-        # gid -1 below); finite ones get the rare full-sort path
-        amb = np.isfinite(kth) & (d_rest == kth[:, None]).any(axis=1)
-        if amb.any():
-            full = np.lexsort((g[amb], d[amb]))[:, :k]
-            g_sel[amb] = np.take_along_axis(g[amb], full, axis=1)
-            d_sel[amb] = np.take_along_axis(d[amb], full, axis=1)
-        g, d = g_sel, d_sel
-    order = np.lexsort((g, d))           # per-row: dist, then gid
-    out_g = np.take_along_axis(g, order, axis=1)
-    out_d = np.take_along_axis(d, order, axis=1)
-    out_g = np.where(np.isfinite(out_d), out_g, -1)
-    if out_g.shape[1] < k:
-        pad = k - out_g.shape[1]
-        out_g = np.pad(out_g, ((0, 0), (0, pad)), constant_values=-1)
-        out_d = np.pad(out_d, ((0, 0), (0, pad)), constant_values=np.inf)
-    return out_g, out_d.astype(np.float32)
 
 
 def merge_topk(blocks_g: List[np.ndarray], blocks_d: List[np.ndarray],
@@ -107,6 +90,114 @@ def _alive_filter(manager, gids: np.ndarray, dists: np.ndarray
     return gids, dists
 
 
+def _plan_pack(manager, pack, filt, rp, t_lo, t_hi, obs, registry):
+    """Run the cost planner over one ``PackView`` dispatch.
+
+    Returns ``(plan, graph_caps)`` where ``graph_caps`` is the set of bucket
+    capacities routed to the stitched traversal this dispatch.  Records
+    the plan on ``manager.last_plan`` and bumps the
+    ``planner_decision_total{mode=...}`` counters — one per bucket.
+    """
+    from ..kernels.ops import encode_filter
+    from .planner import PlannerCosts, plan_read_paths
+    costs = manager.cfg.planner_costs or PlannerCosts()
+    snap = (obs.bucket_stats.snapshot()
+            if obs is not None and obs.bucket_stats is not None else {})
+    # the traversal kernel reads the same packed predicate as the scan
+    # kernels: a filter without an encoding forces scan everywhere
+    graph_ok = encode_filter(filt, pack.m) is not None
+    plan = plan_read_paths(pack, rp, snap, costs, t_lo, t_hi,
+                           graph_allowed=graph_ok)
+    manager.last_plan = plan
+    for dec in plan.values():
+        registry.counter(
+            f'planner_decision_total{{mode="{dec.mode}"}}').inc()
+    graph_caps = frozenset(c for c, dec in plan.items()
+                           if dec.mode == "graph")
+    return plan, graph_caps
+
+
+def _scan_buckets(manager, pack, queries, filt, k, t_lo, t_hi, metric,
+                  trace, observe):
+    """Scan a ``PackView``: exact blocks for fp32 buckets, one reranked
+    block for quantized ones.  Returns ``(blocks_g, blocks_d)``."""
+    from ..distributed.segment_shards import pack_search, pack_search_blocks
+    if not pack.buckets:
+        return [], []
+    if pack.quantize is not None:
+        # two-stage: over-fetch rerank_multiple * k from every unpruned
+        # bucket's int8 launch, rerank the union exactly at fp32
+        gg, dd = pack_search(pack, queries, filt, k, t_lo=t_lo, t_hi=t_hi,
+                             metric=metric, lookup=manager.get_points,
+                             rerank_multiple=manager.cfg.rerank_multiple,
+                             trace=trace, observe=observe)
+        return [gg], [dd]
+    out = pack_search_blocks(pack, queries, filt, k, t_lo=t_lo, t_hi=t_hi,
+                             metric=metric, trace=trace, observe=observe)
+    return [g for g, _ in out], [d for _, d in out]
+
+
+def _graph_search_blocks(manager, pack, buckets, queries, filt, k,
+                         t_lo, t_hi, metric, trace, registry,
+                         observe=None, deadline=None, degrade=None):
+    """Stitched-traversal dispatch for the buckets the planner sent to
+    ``graph`` mode.
+
+    fp32 buckets yield exact ``(gid, dist)`` blocks; quantized buckets
+    yield over-fetched candidate blocks that are reranked exactly at fp32
+    (union across graph buckets — gids are disjoint) before joining the
+    merge.  A bucket whose traversal is unavailable after all falls back
+    to the ordinary scan for that bucket alone, feeding ``observe`` like
+    the main scan path.  With a running ``deadline`` the budget is checked
+    before each bucket's traversal; once spent, the remaining buckets are
+    skipped and reported through ``degrade("deadline_graph", n)``.
+    Returns ``(blocks_g, blocks_d)``.
+    """
+    from ..distributed.segment_shards import bucket_graph_seeds
+    from ..kernels.graph_topk import bucket_graph_topk
+    cfg = manager.cfg
+    quantized = pack.quantize is not None
+    kk = max(k, cfg.rerank_multiple * k if quantized else k)
+    blocks_g: List[np.ndarray] = []
+    blocks_d: List[np.ndarray] = []
+    cand_g: List[np.ndarray] = []
+    for i, bv in enumerate(buckets):
+        if deadline is not None and deadline.expired():
+            if degrade is not None:
+                degrade("deadline_graph", len(buckets) - i)
+            break
+        seeds = bucket_graph_seeds(bv, t_lo, t_hi)
+        with trace.span("bucket_graph", cap=bv.cap, seeds=int(len(seeds))):
+            out = bucket_graph_topk(
+                queries, bv, seeds, filt, kk, m=pack.m, metric=metric,
+                ef=max(cfg.graph_ef, kk), width=cfg.graph_width,
+                max_iters=cfg.graph_max_iters)
+        if out is None:                       # planner gate raced/failed
+            sub = dataclasses.replace(pack, buckets=(bv,))
+            gg, dd = _scan_buckets(manager, sub, queries, filt, k, t_lo,
+                                   t_hi, metric, trace, observe)
+            blocks_g.extend(gg)
+            blocks_d.extend(dd)
+            continue
+        gg, dd, hops = out
+        registry.histogram("graph_hops").observe(float(hops))
+        if quantized:
+            cand_g.append(gg)
+        else:
+            blocks_g.append(gg)
+            blocks_d.append(dd)
+    if cand_g:
+        from ..quant.rerank import rerank_exact
+        with trace.span("graph_rerank",
+                        candidates=int(sum(g.shape[1] for g in cand_g))):
+            gg, dd = rerank_exact(queries, np.concatenate(cand_g, axis=1),
+                                  k, manager.get_points, metric=metric,
+                                  device=manager.device)
+        blocks_g.append(gg)
+        blocks_d.append(dd)
+    return blocks_g, blocks_d
+
+
 def query_segments(manager, queries: np.ndarray, filt: Optional[Filter],
                    k: int = 10, ef: int = 64, return_stats: bool = False,
                    use_shards: Optional[bool] = None, trace=None,
@@ -121,28 +212,29 @@ def query_segments(manager, queries: np.ndarray, filt: Optional[Filter],
     ingests/seals never mutate the delta rows being scanned.  Returns
     ``(gids [b, k], dists [b, k])`` — plus a list of per-segment
     ``SegmentQueryStats`` when ``return_stats`` is set (pruned segments
-    appear with ``pruned=True`` and zero search time).
+    appear with ``pruned=True`` and zero search time; under the sharded
+    path every searched segment reports the shared dispatch time).
 
-    ``use_shards=True`` and ``read_path`` other than ``"scan"`` select read
-    paths that are not ported yet and raise ``NotImplementedError``.
+    ``use_shards`` overrides ``StreamConfig.n_shards`` per call (True
+    forces the sharded kernel scan, False the per-segment graph search).
+    ``read_path`` overrides ``StreamConfig.read_path`` per call
+    (``"scan"`` | ``"graph"`` | ``"auto"``): anything but ``"scan"`` runs
+    the cost planner over the sealed pack and routes each bucket to the
+    fused scan or the stitched traversal; the plan is left on
+    ``manager.last_plan``.
 
     Timings and trace spans stop their clocks only after the device work
     they cover has finished.  ``deadline_ms`` (default
     ``StreamConfig.query_deadline_ms``; None = unbounded) is checked
-    between segment searches; once spent, the remaining segments are
-    skipped and the merged partial result comes back as a
-    :class:`~.resilience.QueryResult` with ``degraded=True``.  The delta
-    buffer is always scanned.
+    between bucket dispatches, graph traversals and segment searches;
+    once spent, the remaining ones are skipped and the merged partial
+    result comes back as a :class:`~.resilience.QueryResult` with
+    ``degraded=True``.  The delta buffer is always scanned.
     """
-    if use_shards:
-        raise NotImplementedError(
-            "the sharded sealed read path (n_shards >= 1) is not ported yet "
-            "(ROADMAP Queue A item 5)")
     rp = manager.cfg.read_path if read_path is None else str(read_path)
-    if rp != "scan":
-        raise NotImplementedError(
-            f"read_path={rp!r} (graph read path and planner) is not ported "
-            "yet (ROADMAP Queue A item 7)")
+    if rp not in ("scan", "graph", "auto"):
+        raise ValueError(f"unknown read_path {rp!r}; supported: 'scan' | "
+                         "'graph' | 'auto'")
     t_all = time.perf_counter()
     queries = np.atleast_2d(np.asarray(queries, np.float32))
     b = queries.shape[0]
@@ -158,8 +250,12 @@ def query_segments(manager, queries: np.ndarray, filt: Optional[Filter],
         reasons[reason] = reasons.get(reason, 0) + int(n)
         registry.counter(
             f'query_degraded_total{{reason="{reason}"}}').inc(n)
+    observe = (obs.bucket_stats.observe
+               if obs is not None and obs.bucket_stats is not None else None)
     t_lo, t_hi = temporal_bounds(filt, manager.time_dim)
     metric = manager.cfg.index_cfg.metric
+    # one lock hold captures the whole consistent view: the segment list
+    # (epoch guard) AND a frozen copy of the delta's live rows
     with trace.span("snapshot"):
         epoch, segments, delta = manager.snapshot()
 
@@ -181,27 +277,104 @@ def query_segments(manager, queries: np.ndarray, filt: Optional[Filter],
             st.pruned = True
         stats.append(st)
 
-    for seg in segments:
-        st = seg.stats()
-        if seg.n_live == 0 or not seg.overlaps(t_lo, t_hi):
-            st.pruned = True
+    sharded = (manager.cfg.n_shards >= 1 if use_shards is None
+               else bool(use_shards))
+    live_segs = [g for g in segments if g.n_live > 0]
+    if sharded and live_segs:
+        from ..distributed.segment_shards import PackView, pack_search
+        # None when every snapshot segment lost its last live point to a
+        # racing delete — nothing sealed to search
+        pack = manager.shard_pack(epoch, live_segs)
+        dt_ms = 0.0
+        if pack is not None:
+            # cost-based routing: with read_path != "scan" the planner
+            # splits the buckets into a scan subset (the exact same calls
+            # as forced scan) and a graph subset (stitched traversal)
+            scan_pack = pack
+            graph_bvs: tuple = ()
+            if isinstance(pack, PackView) and rp != "scan":
+                _, graph_caps = _plan_pack(manager, pack, filt, rp, t_lo,
+                                           t_hi, obs, registry)
+                if graph_caps:
+                    graph_bvs = tuple(bv for bv in pack.buckets
+                                      if bv.cap in graph_caps)
+                    scan_pack = dataclasses.replace(
+                        pack, buckets=tuple(bv for bv in pack.buckets
+                                            if bv.cap not in graph_caps))
+            with trace.span("sealed_scan",
+                            quantized=getattr(pack, "quantize", None)
+                            is not None):
+                t0 = time.perf_counter()
+                if isinstance(pack, PackView) and deadline is not None:
+                    # deadline-aware dispatch: one sub-view per bucket so
+                    # the budget is re-checked between bucket launches.
+                    # Per-bucket exact (or reranked-to-k) blocks merge to
+                    # the same (dist, gid) answer as the bulk dispatch,
+                    # so a query that finishes in time is bit-for-bit the
+                    # no-deadline answer.
+                    bvs = scan_pack.buckets
+                    for i, bv in enumerate(bvs):
+                        if deadline.expired():
+                            _degrade("deadline_sealed_scan", len(bvs) - i)
+                            break
+                        sub = dataclasses.replace(scan_pack, buckets=(bv,))
+                        gg, dd = _scan_buckets(manager, sub, queries, filt,
+                                               k, t_lo, t_hi, metric, trace,
+                                               observe)
+                        blocks_g.extend(gg)
+                        blocks_d.extend(dd)
+                elif isinstance(pack, PackView):
+                    gg, dd = _scan_buckets(manager, scan_pack, queries, filt,
+                                           k, t_lo, t_hi, metric, trace,
+                                           observe)
+                    blocks_g.extend(gg)
+                    blocks_d.extend(dd)
+                else:                     # monolithic pack
+                    gg, dd = pack_search(pack, queries, filt, k, t_lo=t_lo,
+                                         t_hi=t_hi, metric=metric,
+                                         trace=trace)
+                    blocks_g.append(gg)
+                    blocks_d.append(dd)
+                if graph_bvs:
+                    gb_g, gb_d = _graph_search_blocks(
+                        manager, pack, graph_bvs, queries, filt, k,
+                        t_lo, t_hi, metric, trace, registry,
+                        observe=observe, deadline=deadline,
+                        degrade=_degrade)
+                    blocks_g.extend(gb_g)
+                    blocks_d.extend(gb_d)
+                dt_ms = (time.perf_counter() - t0) * 1e3
+        for seg in segments:
+            st = seg.stats()
+            if pack is None or seg.n_live == 0 \
+                    or not seg.overlaps(t_lo, t_hi):
+                st.pruned = True
+            else:
+                st.search_ms = dt_ms
             stats.append(st)
-            continue
-        if deadline is not None and deadline.expired():
-            # budget spent: report the segment unsearched (pruned with
-            # zero search time) and mark the answer degraded
-            _degrade("deadline_segment")
-            st.pruned = True
+    else:
+        for seg in segments:
+            st = seg.stats()
+            if seg.n_live == 0 or not seg.overlaps(t_lo, t_hi):
+                st.pruned = True
+                stats.append(st)
+                continue
+            if deadline is not None and deadline.expired():
+                # budget spent: report the segment unsearched (pruned with
+                # zero search time) and mark the answer degraded
+                _degrade("deadline_segment")
+                st.pruned = True
+                stats.append(st)
+                continue
+            with trace.span("segment_scan", seg_id=seg.seg_id,
+                            rows=seg.n_live):
+                t0 = time.perf_counter()
+                ids, dd = seg.query(queries, filt, k=k, ef=ef, **search_kw)
+                block_ready((ids, dd))
+                st.search_ms = (time.perf_counter() - t0) * 1e3
+            blocks_g.append(ids)
+            blocks_d.append(np.asarray(dd))
             stats.append(st)
-            continue
-        with trace.span("segment_scan", seg_id=seg.seg_id, rows=seg.n_live):
-            t0 = time.perf_counter()
-            ids, dd = seg.query(queries, filt, k=k, ef=ef, **search_kw)
-            block_ready((ids, dd))
-            st.search_ms = (time.perf_counter() - t0) * 1e3
-        blocks_g.append(ids)
-        blocks_d.append(np.asarray(dd))
-        stats.append(st)
 
     registry.counter("query_batches_total").inc()
     registry.counter("query_rows_total").inc(b)

@@ -92,6 +92,25 @@ class Supervisor:
         self.registry.counter(
             f'worker_errors_total{{worker="{name}"}}').inc()
 
+    def note_error(self, name: str, exc: BaseException) -> None:
+        """Record an inline (non-retried) worker failure — for call sites
+        that must fall back at once (a pack-delta failure invalidates the
+        pack rather than retrying under the lock) but must never drop the
+        error."""
+        with self._lock:
+            st = self._state(name)
+            st.errors += 1
+            st.consecutive_failures += 1
+            st.last_error = "".join(traceback.format_exception(
+                type(exc), exc, exc.__traceback__, limit=8))
+            if st.consecutive_failures >= self.error_budget:
+                st.degraded = True
+            self.registry.counter(
+                f'worker_errors_total{{worker="{name}"}}').inc()
+            self.registry.gauge(
+                f'worker_degraded{{worker="{name}"}}').set(
+                    1.0 if st.degraded else 0.0)
+
     def run(self, name: str, fn: Callable[[], object]):
         """Run ``fn`` as worker ``name`` with bounded retry + backoff.
 

@@ -21,7 +21,31 @@ from ..device import resolve_device
 from ..kernels import filtered_topk
 
 __all__ = ["DeltaBuffer", "DeltaSnapshot", "PointStore", "SealedSegment",
-           "SegmentQueryStats", "grow_rows", "scan_filtered_topk"]
+           "SegmentGraph", "SegmentQueryStats", "grow_rows",
+           "scan_filtered_topk"]
+
+
+# Per-segment seed budget for the stitched traversal (see _live_graph):
+# dense all-layer cube entries below this, an even-stride subsample above.
+_MAX_SEED_ENTRIES = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentGraph:
+    """Live-row adjacency + entry points of a sealed segment's CubeGraph
+    index (the union of every layer's edges), re-indexed to the live-row
+    subset that :meth:`SealedSegment.live_snapshot` returns.
+
+    ``nbrs`` is ``[n_live, deg] int32`` (-1 padded; neighbours pointing at
+    deleted rows are dropped — a packed graph block only carries live
+    rows).  ``entries`` is ``[e] int32`` live-local entry ids — the
+    per-cube entry points of the index's layers (capped at
+    ``_MAX_SEED_ENTRIES``), the seeds the stitched traversal starts this
+    segment's component from.
+    """
+
+    nbrs: np.ndarray
+    entries: np.ndarray
 
 
 def grow_rows(need: int, *pairs):
@@ -323,11 +347,14 @@ class SealedSegment:
     """
 
     def __init__(self, seg_id: int, index: CubeGraphIndex, gids: np.ndarray,
-                 time_dim: int):
+                 time_dim: int, quant=None):
         self.seg_id = int(seg_id)
         self.index = index
         self.gids = np.asarray(gids, np.int64)
         self.time_dim = int(time_dim)
+        # int8 codec payload (repro_torch.quant.SegmentQuant, rows parallel
+        # to index.x) — fit exactly once, at seal or compaction-publish
+        self.quant = quant
         t = self.index.s_np[:, time_dim]
         self.t_min = float(t.min()) if len(t) else np.inf
         self.t_max = float(t.max()) if len(t) else -np.inf
@@ -338,12 +365,21 @@ class SealedSegment:
     @classmethod
     def from_points(cls, seg_id: int, x: np.ndarray, s: np.ndarray,
                     gids: np.ndarray, time_dim: int,
-                    cfg: CubeGraphConfig, device=None) -> "SealedSegment":
-        """Build the segment's CubeGraphIndex over the given points."""
+                    cfg: CubeGraphConfig, device=None,
+                    quantize: Optional[str] = None) -> "SealedSegment":
+        """Build the segment's CubeGraphIndex over the given points; with
+        ``quantize`` set, also fit the per-dimension scales and encode the
+        int8 codec payload (a seal or compaction-publish — the only times a
+        segment's content is written, hence the only times scales are
+        fit)."""
         index = CubeGraphIndex.build(np.asarray(x, np.float32),
                                      np.asarray(s, np.float64), cfg,
                                      device=device)
-        return cls(seg_id, index, gids, time_dim)
+        quant = None
+        if quantize is not None:
+            from ..quant import encode_segment
+            quant = encode_segment(np.asarray(x, np.float32), quantize)
+        return cls(seg_id, index, gids, time_dim, quant=quant)
 
     @property
     def n(self) -> int:
@@ -367,9 +403,7 @@ class SealedSegment:
         """(x, s, gids) of live rows as fresh host copies — the inputs of a
         merge or GC rebuild.  All three derive from one read of the
         validity mask, so a racing delete cannot misalign them."""
-        keep = np.nonzero(self.index.valid)[0]
-        x = self.index.x[torch.as_tensor(keep, device=self.index.device)]
-        return x.cpu().numpy(), self.index.s_np[keep], self.gids[keep].copy()
+        return self.live_snapshot()[:3]
 
     def locate(self, gids: Sequence[int]) -> np.ndarray:
         """Global ids -> local ids (-1 where not in this segment)."""
@@ -387,12 +421,90 @@ class SealedSegment:
             self.index.delete(local)
         return len(local)
 
-    def compacted(self) -> "SealedSegment":
-        """GC lazy deletions: rebuild over live points (same seg id/gids)."""
-        x, s, gids = self.live_points()
+    def live_snapshot(self, with_graph: bool = False):
+        """``(x, s, gids, quant)`` of the live rows, all derived from ONE
+        read of the validity mask — the input a lock-free reader (the cold
+        shard-pack build) must use, so a racing delete can never yield
+        vectors and codec rows of different lengths.  ``quant`` is the
+        row-subset :class:`~repro_torch.quant.codec.SegmentQuant` payload,
+        or ``None`` when the segment carries no codec.
+
+        With ``with_graph=True`` a fifth element is appended: the
+        :class:`SegmentGraph` re-indexed to the same live-row subset, which
+        the graph read path stages into the bucketed pack.  The default
+        4-tuple shape is pinned by callers and tests — never change it."""
+        keep = np.nonzero(self.index.valid)[0]
+        quant = self.quant.take(keep) if self.quant is not None else None
+        x = self.index.x[torch.as_tensor(keep, device=self.index.device)]
+        out = (x.cpu().numpy(), self.index.s_np[keep],
+               self.gids[keep].copy(), quant)
+        if with_graph:
+            out = out + (self._live_graph(keep),)
+        return out
+
+    def _live_graph(self, keep: np.ndarray) -> SegmentGraph:
+        # Flatten the hierarchical index into one navigable adjacency: the
+        # union, per point, of every layer's edges (intra + cross) — coarse
+        # layers contribute the long-range links greedy routing needs,
+        # fine layers the local links that make the last hops exact.
+        # Edges are re-indexed to live-local ids; edges into deleted rows
+        # are dropped (compaction restores their connectivity).
+        inv = np.full(self.index.n, -1, np.int32)
+        inv[keep] = np.arange(len(keep), dtype=np.int32)
+        keep_t = torch.as_tensor(keep, device=self.index.device)
+        nb = np.concatenate([lg.all_nbrs[keep_t].cpu().numpy()
+                             for lg in self.index.layers], axis=1)
+        nb = np.where(nb >= 0, inv[np.maximum(nb, 0)], -1).astype(np.int32)
+        # per-row dedupe, valid edges first: sort descending so duplicates
+        # are adjacent and -1 padding sinks to the tail
+        nb = -np.sort(-nb, axis=1)
+        dup = np.zeros_like(nb, dtype=bool)
+        dup[:, 1:] = nb[:, 1:] == nb[:, :-1]
+        nb = np.where(dup, -1, nb)
+        nbrs = -np.sort(-nb, axis=1)
+        # Entry points: the per-cube entries of EVERY layer.  Each sealed
+        # segment is its own connected component inside a shared bucket
+        # and the stitched beam is shared across components, so dense
+        # per-cube seeds start every component's search next to the query.
+        ents = []
+        for lg in self.index.layers:
+            e = np.asarray(lg.cubes.entry).reshape(-1)
+            e = e[e >= 0]
+            if len(e):
+                ents.append(inv[e])
+        entries = (np.unique(np.concatenate(ents)) if ents
+                   else np.empty(0, np.int32))
+        entries = entries[entries >= 0].astype(np.int32)
+        if len(entries) > _MAX_SEED_ENTRIES:
+            # bounded seed-init cost: an even-stride subsample keeps seeds
+            # spread across a big (compacted) segment
+            idx = np.linspace(0, len(entries) - 1, _MAX_SEED_ENTRIES)
+            entries = entries[idx.astype(np.int64)]
+        if len(entries) == 0 and len(keep):
+            # all designated entries were deleted: fall back to the first
+            # few live rows so the segment stays reachable until compaction
+            entries = np.arange(min(len(keep), 4), dtype=np.int32)
+        return SegmentGraph(nbrs=nbrs, entries=entries)
+
+    def compacted(self, quantize: Optional[str] = None) -> "SealedSegment":
+        """GC lazy deletions: rebuild over live points (same seg id/gids).
+        A quantized segment re-fits its scales over the surviving rows (a
+        content rewrite, exactly when the codec contract allows
+        re-encoding); ``quantize`` (the owner's codec) also lets a segment
+        without a codec gain one here.  Index, gid map and codec all derive
+        from ONE :meth:`live_snapshot`, so a racing delete cannot misalign
+        them."""
+        x, s, gids, _ = self.live_snapshot()
+        kind = quantize if quantize is not None else \
+            (self.quant.kind if self.quant is not None else None)
+        quant = None
+        if kind is not None:
+            from ..quant import encode_segment
+            quant = encode_segment(x, kind)
         index = CubeGraphIndex.build(x, s, self.index.cfg,
                                      device=self.index.device)
-        return SealedSegment(self.seg_id, index, gids, self.time_dim)
+        return SealedSegment(self.seg_id, index, gids, self.time_dim,
+                             quant=quant)
 
     def query(self, queries: np.ndarray, filt: Optional[Filter], k: int,
               ef: int = 64, **kw) -> Tuple[np.ndarray, np.ndarray]:

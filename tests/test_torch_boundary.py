@@ -46,7 +46,9 @@ def test_no_jax_or_reference_imports(path):
 def test_import_loads_no_jax():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
-            "repro_torch.obs, repro_torch.streaming\n"
+            "repro_torch.obs, repro_torch.streaming, repro_torch.quant, "
+            "repro_torch.distributed, repro_torch.kernels.graph_topk, "
+            "repro_torch.streaming.planner\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"

@@ -113,3 +113,154 @@ def test_pairwise_dist_kernel_matches_twin(card, dtype, metric):
     torch.cuda.synchronize()
     want = pairwise_dist_plain(q, x, metric)
     assert bool(((got - want).abs() <= _tol(q.float(), x.float())).all())
+
+
+def _quant_stack(card, g=3, cap=1200, d=96, m=3):
+    """Ragged int8 shard stacks (codes, metadata, xsq, scales) and their
+    dequantized rows, from the same data as ``_data``."""
+    from repro_torch.quant import dequantize, encode_segment
+    q, x, s = _data(card)
+    codes = torch.zeros((g, cap, d), dtype=torch.int8, device=card)
+    ss = torch.full((g, cap, m), ops.PAD_META, device=card)
+    xsq = torch.zeros((g, cap), device=card)
+    scales = torch.zeros((g, d), device=card)
+    deq = torch.zeros((g, cap, d), device=card)
+    for gi, fill in enumerate((cap, 1000, 333)):
+        lo = gi * 900
+        sq = encode_segment(x[lo:lo + fill].cpu().numpy())
+        codes[gi, :fill] = torch.as_tensor(sq.codes, device=card)
+        ss[gi, :fill] = s[lo:lo + fill]
+        xsq[gi, :fill] = torch.as_tensor(sq.xsq, device=card)
+        scales[gi] = torch.as_tensor(sq.scales, device=card)
+        deq[gi, :fill] = torch.as_tensor(dequantize(sq.codes, sq.scales),
+                                         device=card)
+    return q, codes, ss, xsq, scales, deq
+
+
+@pytest.mark.parametrize("kpad", [16, 512, 2048])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("kind", list(_FILTERS))
+def test_quant_topk_kernel_matches_twin(card, kind, metric, kpad):
+    from repro_torch.kernels.quant_topk import (quant_topk_call,
+                                                quant_topk_plain)
+    q, codes, ss, xsq, scales, deq = _quant_stack(card)
+    qs = q[None] * scales[:, None, :]
+    params = torch.as_tensor(ops.encode_filter(_FILTERS[kind], 3,
+                                               mpad=3)[1], device=card)
+    kd, ki = quant_topk_call(qs, codes, ss, xsq, params, kind, kpad, metric)
+    torch.cuda.synchronize()
+    td, ti = quant_topk_plain(qs, codes, ss, xsq, params, kind, kpad,
+                              metric)
+    fin = torch.isfinite(td)
+    assert torch.equal(torch.isfinite(kd), fin)
+    assert torch.equal(ki < 0, ~fin)
+    tol = _tol(q, deq.reshape(-1, deq.shape[-1]))[None]
+    assert bool((torch.where(fin, (kd - td).abs(), 0) <= tol).all())
+    gap = td[..., 1:] - td[..., :-1]
+    inf = torch.full_like(td[..., :1], float("inf"))
+    uniq = fin & (torch.cat([inf, gap], -1) > 2 * tol) \
+        & (torch.cat([gap, inf], -1) > 2 * tol)
+    uniq[..., -1] = False
+    assert torch.equal(ki[uniq], ti[uniq])
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("kind", list(_FILTERS))
+def test_graph_step_kernel_matches_twin(card, kind, metric, quantized):
+    from repro_torch.kernels.graph_topk import (beam_step_plain,
+                                                beam_step_scores)
+    q, codes, ss, xsq, scales, deq = _quant_stack(card)
+    g, cap, d = codes.shape
+    gen = torch.Generator(device=card)
+    gen.manual_seed(3)
+    pos = torch.randint(-1, g * cap, (q.shape[0], 300), generator=gen,
+                        device=card, dtype=torch.int32)
+    block, sc = (codes, scales) if quantized else (deq, None)
+    params = torch.as_tensor(ops.encode_filter(_FILTERS[kind], 3,
+                                               mpad=3)[1], device=card)
+    kd, kok = beam_step_scores(q, pos, block, ss, params, kind, metric,
+                               scales=sc)
+    torch.cuda.synchronize()
+    td, tok = beam_step_plain(q, pos, block, ss, params, kind, metric,
+                              scales=sc)
+    valid = pos >= 0
+    assert torch.equal(kok, tok)
+    assert bool(torch.isinf(kd[~valid]).all())
+    tol = _tol(q, deq.reshape(-1, d))
+    assert bool((torch.where(valid, (kd - td).abs(), 0) <= tol).all())
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("d", [3, 30, 130])
+def test_graph_step_kernel_matches_twin_unaligned_width(card, d, quantized):
+    """Widths with d % 4 != 0 take B4's element loads and a short tail
+    piece; they must score like the twin too."""
+    from repro_torch.kernels.graph_topk import (beam_step_plain,
+                                                beam_step_scores)
+    from repro_torch.quant import dequantize, encode_segment
+    g, cap, m = 2, 700, 3
+    x, s = make_dataset_device(g * cap, d, m, seed=d, device=card)
+    q = x[:17] + 0.05
+    sq = encode_segment(x.cpu().numpy())
+    codes = torch.as_tensor(sq.codes, device=card).reshape(g, cap, d)
+    scales = torch.as_tensor(sq.scales, device=card)[None].expand(g, d)
+    deq = torch.as_tensor(dequantize(sq.codes, sq.scales),
+                          device=card).reshape(g, cap, d)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(d)
+    pos = torch.randint(-1, g * cap, (q.shape[0], 200), generator=gen,
+                        device=card, dtype=torch.int32)
+    block, sc = (codes, scales.contiguous()) if quantized else (deq, None)
+    ss = s.reshape(g, cap, m)
+    params = torch.as_tensor(ops.encode_filter(_FILTERS["box"], 3,
+                                               mpad=3)[1], device=card)
+    kd, kok = beam_step_scores(q, pos, block, ss, params, "box", "l2",
+                               scales=sc)
+    torch.cuda.synchronize()
+    td, tok = beam_step_plain(q, pos, block, ss, params, "box", "l2",
+                              scales=sc)
+    valid = pos >= 0
+    assert torch.equal(kok, tok)
+    assert bool(torch.isinf(kd[~valid]).all())
+    tol = _tol(q, deq.reshape(-1, d))
+    assert bool((torch.where(valid, (kd - td).abs(), 0) <= tol).all())
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_sharded_pack_invariants_on_card(card, quantize):
+    """On the card: the bucketed pack answers bit for bit like the
+    monolithic scan (fp32) and like a cold rebuild after mutations."""
+    from repro_torch.distributed import segment_shards as tss
+    rng = np.random.default_rng(1)
+    srcs, gid0 = [], 0
+    for sid in range(4):
+        n = int(rng.integers(300, 900))
+        x = rng.normal(size=(n, 64)).astype(np.float32)
+        s = rng.uniform(size=(n, 3))
+        srcs.append(tss.SegmentShardSource(
+            sid, x, s, np.arange(gid0, gid0 + n, dtype=np.int64),
+            float(s[:, 2].min()), float(s[:, 2].max())))
+        gid0 += n
+    lookup_x = np.concatenate([src.x for src in srcs])
+    lookup = lambda g: (lookup_x[np.asarray(g)], None,  # noqa: E731
+                        np.ones(len(g), bool))
+    q = rng.normal(size=(16, 64)).astype(np.float32)
+    inc = tss.BucketedShardPack(2, 64, 3, quantize=quantize, device=card)
+    for src in srcs:
+        inc.add_segment(src)
+    assert inc.remove_segment(1)
+    inc.add_segment(srcs[1])
+    dead = rng.choice(gid0, 100, replace=False)
+    inc.mark_dead(dead)
+    cold = tss.build_bucketed_pack(srcs, 2, quantize=quantize, device=card)
+    cold.mark_dead(dead)
+    kw = dict(lookup=lookup) if quantize else {}
+    gi, di = tss.pack_search(inc, q, None, k=20, **kw)
+    gc, dc = tss.pack_search(cold, q, None, k=20, **kw)
+    assert np.array_equal(di, dc) and np.array_equal(gi, gc)
+    if quantize is None:
+        mono = tss.build_shard_pack(srcs, 3, device=card)
+        mono.mark_dead(dead)
+        gm, dm = tss.pack_search(mono, q, None, k=20)
+        assert np.array_equal(di, dm)

@@ -246,11 +246,17 @@ def test_stats_trace_and_deadline():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"n_shards": 1}, "item 5"), ({"quantize": "int8"}, "item 6"),
-    ({"read_path": "graph"}, "item 7"), ({"persist_dir": "/nonexistent"},
-                                         "item 8"),
+    ({"n_shards": 1}, None), ({"n_shards": 1, "quantize": "int8"}, None),
+    ({"n_shards": 1, "read_path": "graph"}, None),
+    ({"persist_dir": "/nonexistent"}, "item 8"),
     ({"device_budget_bytes": 0}, "item 9")])
 def test_later_slice_options_raise(kw, item):
+    """Options of later slices raise naming their ROADMAP item; the
+    sharded, int8 and graph read paths (items 5-7) are ported."""
+    if item is None:
+        mgr = ts.SegmentManager(8, 2, ts.StreamConfig(**kw), device="cpu")
+        assert mgr.cfg.n_shards == 1
+        return
     with pytest.raises(NotImplementedError, match=item):
         ts.SegmentManager(8, 2, ts.StreamConfig(**kw), device="cpu")
 
@@ -263,10 +269,16 @@ def test_later_slice_entry_points_raise():
         mgr.snapshot_to("x")
     with pytest.raises(NotImplementedError, match="item 11"):
         mgr.query_grouped([])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        mgr.query(np.zeros((1, 8), np.float32), None, use_shards=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        mgr.query(np.zeros((1, 8), np.float32), None, read_path="auto")
+    from repro_torch.distributed import pack_search_blocks_grouped
+    from repro_torch.kernels.ops import sharded_filtered_topk_grouped
+    with pytest.raises(NotImplementedError, match="item 11"):
+        pack_search_blocks_grouped(None, [])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        sharded_filtered_topk_grouped([], None, None)
+    # the sharded path (ported) answers an empty manager with padding
+    for kw in ({"use_shards": True}, {"read_path": "auto"}):
+        g, d = mgr.query(np.zeros((1, 8), np.float32), None, k=3, **kw)
+        assert (g == -1).all() and np.isinf(d).all()
     # StreamConfig keeps every reference field with the same default
     tj, tt = js.StreamConfig(), ts.StreamConfig()
     names = [f.name for f in dataclasses.fields(js.StreamConfig)]
