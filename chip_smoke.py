@@ -12,9 +12,15 @@ PyTorch twin, then drives the port's main paths at deployment widths
 built and queried on the card, the default streaming ``SegmentManager``,
 and the sharded sealed read path (``n_shards=2``, fp32 and int8 packs,
 forced scan, forced graph and planner-chosen reads) — and checks the
-answers against exact ground truth.  Finally it times each kernel beside
-its twin, its roofline bound and one PyTorch library call computing the
-same function.
+answers against exact ground truth.  It times each of those kernels
+beside its twin, its roofline bound and one PyTorch library call
+computing the same function.  Then it frees those phases' tensors and
+drives the generation side at the full width of ``internvl2-2b`` in bf16
+(random weights drawn on the card from ``SEED``): a ``ContinuousBatcher``
+run, decode checked against a full forward, and ``RAGPipeline.answer``
+over a static ``DocumentStore``; the decode kernel (B5) is held against
+its twin on the inputs one layer of a recorded batcher tick handed it,
+and timed there.
 
 The last three lines of standard output are the card's name and power
 limit (from ``nvidia-smi``), a JSON object describing every kernel, and
@@ -25,6 +31,7 @@ does not hold the port's sources.
 from __future__ import annotations
 
 import argparse
+import gc
 import importlib
 import json
 import math
@@ -49,6 +56,34 @@ N_STREAM = 100_000
 N_SHARDED = 100_000     # points per manager in the sharded streaming phase
 EARLY_QUERY_BATCH = 2   # the sharded managers' first query, after 3 batches
 SEED = 0
+
+# Generation phase (7): the full width of ARCH, never cut.  N_RAG is cut
+# from phase 4's 100,000 (the index build is O(n^2) and phase 4 covers
+# that size); the other sizes are a serving deployment's own.
+ARCH = "internvl2-2b"
+SLOTS = 8               # batcher lanes over one KV cache
+MAX_LEN = 4096          # cache positions per slot
+N_REQUESTS = 16
+PROMPT_LO, PROMPT_HI = 1024, 3584
+MAX_NEW = 32
+RECORD_TICK = 16        # the batcher tick (first wave) whose B5 inputs ...
+RECORD_LAYER = 12       # ... of this layer are recorded, checked and timed
+PROFILE_TICK = 24       # the batcher tick traced with torch.profiler
+N_FORWARD = 2           # requests whose decode logits are held to a forward
+# Decode vs forward: |diff| <= LOGIT_TOL * rms(row) of the forward's
+# logits.  bf16 rounds each result to 8 bits (2^-9 relative); the decode
+# step and the forward round at different points (B5's fp32 softmax
+# against the forward's bf16 scores, one-row against many-row matmul
+# kernels), about ten per layer over 24 layers: as a random walk about
+# sqrt(240) x 0.2% = 3% of the logit scale; 0.15 leaves a 5x margin.
+LOGIT_TOL = 0.15
+N_RAG = 20_000          # documents (d_emb = D, metadata lon, lat, t)
+RAG_SPAN = 256          # tokens per document
+RAG_QUERIES = 8
+RAG_QUERY_TOKENS = 32
+RAG_K = 8
+RAG_MAX_NEW = 16
+RAG_CONTEXT = 2048
 
 
 def log(msg: str) -> None:
@@ -843,6 +878,371 @@ def measure(torch, keep: dict, nq: int, d: int) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Kernel B5 (decode attention) and the generation side
+# ---------------------------------------------------------------------------
+def compare_decode(torch, q, k, v, lengths, what: str) -> float:
+    """B5 kernel vs twin on one input.  Both compute in fp32 and round the
+    output once to q's dtype, so they differ by the summation order
+    (fp32: within 2e-4, the reference's own kernel-test bound) and, in
+    bf16, by at most one rounding of the output (1e-2 absolute and
+    relative: two bf16 ulps at |o| ~ 1).  Returns the largest absolute
+    difference."""
+    from repro_torch.kernels.flash_decode import (flash_decode_call,
+                                                  flash_decode_plain)
+    got = flash_decode_call(q, k, v, lengths)
+    torch.cuda.synchronize()
+    want = flash_decode_plain(q, k, v, lengths)
+    check(got.dtype == q.dtype and got.shape == q.shape,
+          f"{what}: output {got.dtype} {tuple(got.shape)}")
+    tol = 2e-4 if q.dtype == torch.float32 else 1e-2
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    check(bool(torch.isfinite(got.float()).all()), f"{what}: not finite")
+    check(bool((diff <= tol + tol * want.float().abs()).all()),
+          f"{what}: error {err:.3g} above tolerance")
+    return err
+
+
+def phase_kernels_decode(torch, dev, seed: int, errs: dict) -> None:
+    """B5 against its twin in fp32 and bf16: the reference's own test
+    shapes, GQA groups 1 / 2 / 12 at hd = 64, ragged smax, lengths 0 and
+    smax - 1, and a shape with one split per row."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 60)
+    shapes = [(4, 8, 512, 128), (2, 16, 1024, 128), (8, 8, 256, 256),
+              (5, 1, 300, 64), (6, 2, 777, 64), (3, 12, 1000, 64),
+              (7, 2, 4099, 128), (600, 2, 50, 64)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for bkv, g, smax, hd in shapes:
+            q, k, v = (torch.randn(shape, generator=gen, device=dev
+                                   ).to(dtype)
+                       for shape in ((bkv, g, hd), (bkv, smax, hd),
+                                     (bkv, smax, hd)))
+            lengths = torch.randint(0, smax, (bkv,), generator=gen,
+                                    device=dev, dtype=torch.int32)
+            lengths[0] = 0
+            lengths[1] = smax - 1
+            e = compare_decode(torch, q, k, v, lengths,
+                               f"B5 {dtype} [{bkv}, {g}, {smax}, {hd}]")
+            errs["flash_decode"] = max(errs["flash_decode"], e)
+    log(f"B5 vs twin: fp32 and bf16 x {len(shapes)} shapes (g 1..16, hd "
+        f"64 / 128 / 256, ragged smax, lengths 0 and smax - 1) agree; max "
+        f"|err| {errs['flash_decode']:.3g}")
+
+
+def profile_tick(torch, step) -> dict:
+    """One call of ``step`` under ``torch.profiler``: the device time of
+    the kernels it ran (their summed durations), their count and the five
+    largest by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return dict(device_ms=sum(by_name.values()), kernels=n,
+                top=[(name[:60], round(ms, 4)) for name, ms in top])
+
+
+def main_generate(torch, dev, seed: int, errs: dict, keep: dict) -> dict:
+    """The generation side at the full width of ARCH in bf16: a
+    ContinuousBatcher run, decode held to a full forward, and RAG answers
+    over a static DocumentStore.  Resets every kernel's launch count
+    before and returns the launches of each in this phase."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import CubeGraphConfig
+    from repro_torch.core.workloads import (make_box_filter,
+                                            make_dataset_device)
+    from repro_torch.models import build_model, count_params, init_params
+    from repro_torch.serving import (ContinuousBatcher, Document,
+                                     DocumentStore, RAGPipeline, Request)
+    mods = {name: importlib.import_module(f"repro_torch.kernels.{mod}")
+            for name, mod in (("filtered_topk", "filtered_topk"),
+                              ("pairwise_dist", "distance"),
+                              ("quant_topk", "quant_topk"),
+                              ("graph_step", "graph_topk"),
+                              ("flash_decode", "flash_decode"))}
+    fdm = mods["flash_decode"]
+    cfg = get_config(ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = init_params(model.param_specs(), seed=seed, device=dev)
+    torch.cuda.synchronize()
+    n_par = count_params(model.param_specs())
+    log(f"{ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads} / kv {cfg.n_kv} (g = {cfg.n_heads // cfg.n_kv}), hd "
+        f"{cfg.hd}, vocab {cfg.vocab}; {n_par} parameters "
+        f"({n_par * 2 / 1e9:.2f} GB bf16) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed + 70)
+    lens = rng.integers(PROMPT_LO, PROMPT_HI + 1, N_REQUESTS)
+    prompts = [rng.integers(2, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in lens]
+    for mod in mods.values():
+        mod.reset_launch_count()
+
+    # -- 7a: the batcher ----------------------------------------------------
+    batcher = ContinuousBatcher(model, params, n_slots=SLOTS,
+                                max_len=MAX_LEN, eos_id=-1)
+    kv_bytes = sum(c.numel() * c.element_size()
+                   for c in batcher.cache.values())
+    log(f"KV cache [{cfg.n_layers}, {SLOTS}, {cfg.n_kv}, {MAX_LEN}, "
+        f"{cfg.hd}] x 2: {kv_bytes / 1e9:.2f} GB")
+    for i, p in enumerate(prompts):
+        batcher.submit(Request(req_id=i, prompt=p, max_new=MAX_NEW))
+    prefill_ms, tick_ms, recorded, busy, t_prof = [], [], {}, {}, 0.0
+    real_prefill, real_fd = batcher.prefill_fn, fdm.flash_decode_call
+    calls = [0]
+
+    def timed_prefill(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_prefill(*a, **kw)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def recorder(q, k, v, lengths):
+        if calls[0] == RECORD_TICK * cfg.n_layers + RECORD_LAYER:
+            recorded.update(q=q.clone(), k=k.clone(), v=v.clone(),
+                            lengths=lengths.clone())
+        calls[0] += 1
+        return real_fd(q, k, v, lengths)
+    batcher.prefill_fn = timed_prefill
+    fdm.flash_decode_call = recorder
+    t_run = time.perf_counter()
+    try:
+        while batcher.queue or batcher.active:
+            batcher.admit()
+            torch.cuda.synchronize()
+            if batcher.steps == PROFILE_TICK:
+                t = time.perf_counter()
+                busy = profile_tick(torch, batcher.step)
+                t_prof = time.perf_counter() - t
+                continue
+            t = time.perf_counter()
+            batcher.step()          # ends in a host copy of the tokens
+            tick_ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        fdm.flash_decode_call = real_fd
+    # the traced tick counts as a median tick (the profiler's own start-up
+    # is not the batcher's time)
+    t_run = (time.perf_counter() - t_run - t_prof
+             + float(np.median(tick_ms)) / 1e3)
+    b5_batcher = fdm.launch_count()
+    done = batcher.finished
+    check(len(done) == N_REQUESTS, f"batcher finished {len(done)} of "
+          f"{N_REQUESTS} requests")
+    for r in done:
+        out = np.asarray(r.output)
+        check(len(out) == MAX_NEW and bool(((out >= 0)
+                                            & (out < cfg.vocab)).all()),
+              f"request {r.req_id}: {len(out)} tokens, range "
+              f"[{out.min()}, {out.max()}]")
+    check(b5_batcher == cfg.n_layers * batcher.steps,
+          f"B5 launched {b5_batcher} times in {batcher.steps} decode ticks "
+          f"of {cfg.n_layers} layers")
+    check(bool(recorded), "no B5 call was recorded")
+    n_tok = N_REQUESTS * MAX_NEW
+    dec_tok = N_REQUESTS * (MAX_NEW - 1)
+    tick = np.asarray(tick_ms)
+    log(f"batcher: {N_REQUESTS} requests (prompts {int(lens.min())}.."
+        f"{int(lens.max())} tokens, mean {lens.mean():.0f}) through "
+        f"{SLOTS} slots, {batcher.steps} decode ticks, {t_run:.2f} s, "
+        f"{n_tok / t_run:.1f} tokens/s end to end; B5 launches "
+        f"{b5_batcher} = {cfg.n_layers} x {batcher.steps} ticks")
+    log(f"prefill ms per request: {[round(x, 2) for x in prefill_ms]} "
+        f"(mean {np.mean(prefill_ms):.2f}, "
+        f"{lens.sum() / (sum(prefill_ms) / 1e3):.0f} prompt tokens/s)")
+    log(f"decode ms per tick: mean {tick.mean():.3f}, p50 "
+        f"{np.median(tick):.3f}, min {tick.min():.3f}, max "
+        f"{tick.max():.3f} over the {len(tick)} ticks not traced; "
+        f"{dec_tok / batcher.steps / (tick.mean() / 1e3):.1f} decode "
+        f"tokens/s at the mean tick")
+    check(bool(busy), f"the batcher ran no tick {PROFILE_TICK}")
+    if busy["device_ms"] > 0:
+        idle = 1.0 - busy["device_ms"] / float(np.median(tick))
+        log(f"tick {PROFILE_TICK} under torch.profiler: device busy "
+            f"{busy['device_ms']:.3f} ms in {busy['kernels']} kernels, "
+            f"{idle:.3f} of the median tick idle; top kernels (ms): "
+            f"{busy['top']}")
+    else:
+        idle = None
+        log(f"tick {PROFILE_TICK} under torch.profiler: no device time "
+            f"recorded; device idle share not measured")
+    keep["decode"] = recorded
+    keep["generation"] = dict(
+        prefill_ms_mean=float(np.mean(prefill_ms)),
+        decode_tick_ms_mean=float(tick.mean()),
+        decode_tick_ms_p50=float(np.median(tick)), device_idle_share=idle,
+        tokens_per_s=n_tok / t_run, ticks=batcher.steps)
+    del batcher
+
+    # -- 7b: decode == forward ----------------------------------------------
+    worst, worst_gap_tok, checked = 0.0, 0, 0
+    cache = model.init_cache(N_FORWARD, MAX_LEN, device=dev)
+    steps = [[] for _ in range(N_FORWARD)]
+    cur = torch.zeros((N_FORWARD, 1), dtype=torch.int32, device=dev)
+    for i in range(N_FORWARD):
+        view = {name: c[:, i:i + 1] for name, c in cache.items()}
+        lg, _ = model.prefill(params, torch.as_tensor(
+            prompts[i][None], device=dev), view)
+        steps[i].append(lg[0, -1].float())
+        cur[i, 0] = torch.argmax(lg[0, -1].float())
+    pos = torch.tensor(lens[:N_FORWARD], dtype=torch.long, device=dev)
+    gen_toks = [cur.clone()]
+    for _ in range(MAX_NEW - 1):
+        lg, cache = model.decode_step(params, cur, cache, pos)
+        for i in range(N_FORWARD):
+            steps[i].append(lg[i, 0].float())
+        cur = torch.argmax(lg[:, 0].float(), dim=-1)[:, None].to(torch.int32)
+        gen_toks.append(cur.clone())
+        pos += 1
+    gen_toks = torch.cat(gen_toks, dim=1)              # [N_FORWARD, MAX_NEW]
+    del cache
+    for i in range(N_FORWARD):
+        full = torch.cat([torch.as_tensor(prompts[i], device=dev).long(),
+                          gen_toks[i, :-1].long()])[None]
+        fwd, _ = model.logits(params, full)
+        n = int(lens[i])
+        fwd = fwd[0, n - 1:n - 1 + MAX_NEW].float()    # [MAX_NEW, vocab]
+        dec = torch.stack(steps[i])
+        rms = fwd.pow(2).mean(-1, keepdim=True).sqrt()
+        rel = ((dec - fwd).abs() / rms).max(-1).values
+        worst = max(worst, float(rel.max()))
+        check(bool((rel <= LOGIT_TOL).all()),
+              f"request {i}: decode logits differ from the forward's by "
+              f"{float(rel.max()):.4f} x rms > {LOGIT_TOL}")
+        top2 = torch.topk(fwd, 2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]) / rms[:, 0]
+        sure = gap > LOGIT_TOL
+        agree = gen_toks[i].long() == fwd.argmax(-1)
+        check(bool(agree[sure].all()),
+              f"request {i}: a greedy token differs from the forward's "
+              f"argmax where the top-2 gap exceeds the tolerance")
+        checked += int(sure.sum())
+        worst_gap_tok += int((~agree).sum())
+    log(f"decode vs forward ({N_FORWARD} requests x {MAX_NEW} steps, "
+        f"ragged positions): max |diff| / rms(row) {worst:.4f} (tolerance "
+        f"{LOGIT_TOL}); greedy tokens equal the forward's argmax at all "
+        f"{checked} steps whose top-2 gap exceeds it ({worst_gap_tok} "
+        f"near-tie steps differ)")
+    keep["generation"]["decode_vs_forward_rel"] = worst
+
+    # -- 7c: RAG ----------------------------------------------------------------
+    m = 3
+    xt, st = make_dataset_device(N_RAG, D, m, seed=seed + 72, device=dev)
+    x_np, s_np = xt.cpu().numpy(), st.cpu().numpy().astype(np.float64)
+    del xt, st
+    toks = rng.integers(2, cfg.vocab, size=(N_RAG, RAG_SPAN)).astype(
+        np.int32)
+    docs = [Document(i, toks[i], x_np[i], s_np[i]) for i in range(N_RAG)]
+    t0 = time.perf_counter()
+    store = DocumentStore(docs, CubeGraphConfig(), device=dev)
+    torch.cuda.synchronize()
+    log(f"RAG store: {N_RAG} documents, d_emb {D}, spans of {RAG_SPAN} "
+        f"tokens; index built in {time.perf_counter() - t0:.1f} s")
+    pipe = RAGPipeline(store, model, params, max_context=RAG_CONTEXT)
+    f = make_box_filter(m, 0.1, seed=seed + 73)
+    rag_ms, n_docs, prompt_lens = [], [], []
+    b5_before = fdm.launch_count()
+    for qi in range(RAG_QUERIES):
+        query = rng.integers(2, cfg.vocab, size=RAG_QUERY_TOKENS).astype(
+            np.int32)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, got = pipe.answer(query, f, k=RAG_K, max_new=RAG_MAX_NEW)
+        rag_ms.append((time.perf_counter() - t) * 1e3)
+        check(1 <= len(got) <= RAG_K, f"RAG query {qi}: {len(got)} docs")
+        meta = torch.as_tensor(np.stack([d.metadata for d in got]))
+        check(bool(f.contains(meta).all()),
+              f"RAG query {qi}: a retrieved document fails the filter")
+        check(len(out) == RAG_MAX_NEW and bool(((out >= 0)
+                                                & (out < cfg.vocab)).all()),
+              f"RAG query {qi}: output {out}")
+        n_docs.append(len(got))
+        prompt_lens.append(len(pipe.assemble(got, query)))
+    b5_rag = fdm.launch_count() - b5_before
+    check(b5_rag == cfg.n_layers * RAG_QUERIES * (RAG_MAX_NEW - 1),
+          f"RAG: B5 launched {b5_rag} times")
+    log(f"RAG: {RAG_QUERIES} answers (box filter ratio 0.1, k {RAG_K}, "
+        f"max_new {RAG_MAX_NEW}, max_context {RAG_CONTEXT}): docs "
+        f"{n_docs}, prompts {prompt_lens} tokens, ms per answer "
+        f"{[round(x, 1) for x in rag_ms]}; every document passes the "
+        f"filter")
+    launches = {name: mod.launch_count() for name, mod in mods.items()}
+    log(f"generation phase launches: {launches}")
+    expect = cfg.n_layers * (keep["generation"]["ticks"] + (MAX_NEW - 1)
+                             + RAG_QUERIES * (RAG_MAX_NEW - 1))
+    check(launches["flash_decode"] == expect,
+          f"B5 launched {launches['flash_decode']} times, {expect} decode "
+          "layer-steps in the phase")
+    return launches
+
+
+def measure_decode(torch, keep: dict, errs: dict) -> dict:
+    """B5 on the inputs one layer of a recorded batcher tick handed it:
+    held against its twin, then timed beside the twin, its bound (the
+    filled prefix's K / V bytes plus q and o over HBM bandwidth) and
+    ``scaled_dot_product_attention`` with a boolean length mask."""
+    from repro_torch.kernels.flash_decode import (flash_decode_call,
+                                                  flash_decode_plain)
+    rec = keep["decode"]
+    q, k, v, lengths = rec["q"], rec["k"], rec["v"], rec["lengths"]
+    bkv, g, hd = q.shape
+    smax = k.shape[1]
+    e = compare_decode(torch, q, k, v, lengths, "B5 on the recorded tick")
+    errs["flash_decode"] = max(errs["flash_decode"], e)
+    filled = int((lengths.long() + 1).sum())
+    log(f"B5 vs twin on layer {RECORD_LAYER} of tick {RECORD_TICK}: "
+        f"[{bkv}, {g}, {smax}, {hd}] {q.dtype}, lengths per slot "
+        f"{lengths.view(SLOTS, -1)[:, 0].tolist()}, {filled} filled "
+        f"positions of {bkv * smax}: agree, max |err| {e:.3g}")
+    ms = cuda_ms(torch, lambda: flash_decode_call(q, k, v, lengths),
+                 iters=50, warmup=5)
+    plain = cuda_ms(torch, lambda: flash_decode_plain(q, k, v, lengths),
+                    iters=10)
+    import torch.nn.functional as F
+    b = SLOTS
+    n_kv = bkv // b
+    ql = q.view(b, n_kv * g, 1, hd)
+    kl, vl = k.view(b, n_kv, smax, hd), v.view(b, n_kv, smax, hd)
+    mask = (torch.arange(smax, device=q.device)[None, :]
+            <= lengths.view(b, n_kv)[:, :1].long())[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                              enable_gqa=True)
+    lib_out = library()
+    lib_err = float((lib_out.reshape(bkv, g, hd).float()
+                     - flash_decode_plain(q, k, v, lengths).float()
+                     ).abs().max())
+    lib = cuda_ms(torch, library, iters=50, warmup=5)
+    es = q.element_size()
+    nbytes = 2.0 * filled * hd * es + 2.0 * q.numel() * es + 4.0 * bkv
+    flops = 4.0 * filled * g * hd
+    bound = max(nbytes / PEAK_BYTES, flops / PEAK_FP32_FLOPS) * 1e3
+    log(f"B5 library yardstick: scaled_dot_product_attention (GQA, bool "
+        f"mask) differs from the twin by {lib_err:.3g}")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                bound_by="bytes" if nbytes / PEAK_BYTES
+                >= flops / PEAK_FP32_FLOPS else "operations",
+                filled=filled,
+                shape=f"layer {RECORD_LAYER} of batcher tick {RECORD_TICK}:"
+                      f" q[{bkv},{g},{hd}] k/v[{bkv},{smax},{hd}] "
+                      f"{str(q.dtype).replace('torch.', '')}, {filled} "
+                      f"filled positions")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -863,6 +1263,7 @@ def main() -> int:
         b2 = importlib.import_module("repro_torch.kernels.distance")
         importlib.import_module("repro_torch.kernels.quant_topk")
         importlib.import_module("repro_torch.kernels.graph_topk")
+        importlib.import_module("repro_torch.kernels.flash_decode")
     except ImportError as exc:
         print(f"chip_smoke: the port's sources are not here ({exc})",
               file=sys.stderr)
@@ -890,9 +1291,10 @@ def main() -> int:
             log(f"[{name}] " + ("\n[{name}] ".format(name=name).join(lines)
                                 if lines else "already built"))
     errs = {"filtered_topk": 0.0, "pairwise_dist": 0.0, "quant_topk": 0.0,
-            "graph_step": 0.0}
+            "graph_step": 0.0, "flash_decode": 0.0}
     with Phase("2 kernels vs twins", torch):
         phase_kernels(torch, dev, SEED, errs)
+        phase_kernels_decode(torch, dev, SEED, errs)
     if args.kernels_only:
         return 0
 
@@ -925,6 +1327,30 @@ def main() -> int:
             log(f"{name} at {mm['shape']}: kernel {mm['ms']:.3f} ms, twin "
                 f"{mm['plain_ms']:.3f} ms, library {mm['library_ms']:.3f} "
                 f"ms, bound {mm['bound_ms']:.3f} ms ({mm['bound_by']})")
+
+    # ---- the generation side, after the retrieval phases' tensors go ---
+    keep.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase("7 generation", torch):
+        # the phase resets every count just before it and reads it after
+        gen = main_generate(torch, dev, SEED, errs, keep)
+    for name in ("filtered_topk", "pairwise_dist", "quant_topk",
+                 "graph_step"):
+        launches[name] += gen[name]
+    launches["flash_decode"] = gen["flash_decode"]
+    with Phase("7d B5 on the recorded tick (measure)", torch):
+        meas["flash_decode"] = mm = measure_decode(torch, keep, errs)
+        log(f"flash_decode at {mm['shape']}: kernel {mm['ms']:.4f} ms, "
+            f"twin {mm['plain_ms']:.4f} ms, library "
+            f"{mm['library_ms']:.4f} ms, bound {mm['bound_ms']:.4f} ms "
+            f"({mm['bound_by']})")
+    g = keep["generation"]
+    log(f"generation: prefill {g['prefill_ms_mean']:.2f} ms per request, "
+        f"decode {g['decode_tick_ms_mean']:.3f} ms per tick (p50 "
+        f"{g['decode_tick_ms_p50']:.3f}), {g['tokens_per_s']:.1f} tokens/s "
+        f"end to end, decode vs forward {g['decode_vs_forward_rel']:.4f} x "
+        f"rms")
     sources = {"filtered_topk": ("src/repro_torch/csrc/filtered_topk.cu",
                                  "src/repro/kernels/filtered_topk.py:131"),
                "pairwise_dist": ("src/repro_torch/csrc/distance.cu",
@@ -932,12 +1358,15 @@ def main() -> int:
                "quant_topk": ("src/repro_torch/csrc/quant_topk.cu",
                               "src/repro/kernels/quant_topk.py:128"),
                "graph_step": ("src/repro_torch/csrc/graph_step.cu",
-                              "src/repro/kernels/graph_topk.py:75")}
+                              "src/repro/kernels/graph_topk.py:75"),
+               "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
+                                "src/repro/kernels/flash_decode.py:64")}
     kernels = []
     for name, mkey in (("filtered_topk", "filtered_topk"),
                        ("pairwise_dist", "pairwise_dist"),
                        ("quant_topk", "quant_topk"),
-                       ("graph_step", "graph_step_fp32")):
+                       ("graph_step", "graph_step_fp32"),
+                       ("flash_decode", "flash_decode")):
         mm = meas[mkey]
         entry = {
             "name": name, "route": "cuda", "source": sources[name][0],

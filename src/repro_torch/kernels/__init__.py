@@ -10,6 +10,9 @@ plain PyTorch twin.
 - ``graph_topk``    one graph traversal hop with the gather fused in
                     (kernel B4, ``csrc/graph_step.cu``) and the stitched
                     per-bucket traversal around it
+- ``flash_decode``  single-token GQA decode attention split over the
+                    sequence (kernel B5, ``csrc/flash_decode.cu``); the
+                    port's decode step calls it once per layer
 - ``ref``           plain PyTorch oracles
 - ``ops``           public wrappers: filter encoding, device placement,
                     dispatch, the shard-stack wrappers and block layouts

@@ -24,7 +24,8 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 # repo root (src/repro_torch/kernels -> repo)
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch_kernels"
-KERNEL_SOURCES = ("filtered_topk", "distance", "quant_topk", "graph_step")
+KERNEL_SOURCES = ("filtered_topk", "distance", "quant_topk", "graph_step",
+                  "flash_decode")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -48,6 +49,10 @@ _SIGNATURES = {
     },
     "graph_step": {
         "repro_graph_step": ([_P] * 8 + [_I] * 10 + [_P], _I),
+    },
+    "flash_decode": {
+        "repro_flash_decode": ([_P] * 7 + [_I] * 7 + [_P], _I),
+        "repro_flash_decode_tile": ([_I, _I], _I),
     },
 }
 

@@ -5,11 +5,14 @@ functions the CPU parity tests hold against the JAX package's own oracles.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = ["pairwise_sq_l2", "pairwise_neg_ip", "inner_products",
            "filter_mask_ref", "filtered_topk_ref", "quant_filtered_topk_ref",
-           "beam_step_ref", "topk_by_dist_id", "FILTER_KINDS", "PAD_META"]
+           "beam_step_ref", "flash_decode_ref", "topk_by_dist_id",
+           "FILTER_KINDS", "PAD_META"]
 
 FILTER_KINDS = ("none", "box", "ball", "box_not_ball", "box_ball")
 _POS = 1e30
@@ -146,3 +149,16 @@ def beam_step_ref(q, cand_x, cand_meta, kind: str, params,
         d = -ip
     ok = filter_mask_ref(cand_meta, kind, params)
     return d, ok.to(torch.int32)
+
+
+def flash_decode_ref(q, k, v, lengths):
+    """Oracle for the fused decode-attention kernel (B5), fp32 throughout.
+    q [bkv, g, hd], k / v [bkv, smax, hd], lengths [bkv] (inclusive
+    prefix) -> o [bkv, g, hd] in q's dtype."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    hd = q.shape[-1]
+    scores = torch.einsum("bgd,bsd->bgs", qf, kf) / math.sqrt(hd)
+    col = torch.arange(k.shape[1], device=q.device)[None, None, :]
+    scores = scores.masked_fill(col > lengths.long()[:, None, None], -1e30)
+    attn = torch.softmax(scores, dim=-1)
+    return torch.einsum("bgs,bsd->bgd", attn, vf).to(q.dtype)

@@ -1,0 +1,181 @@
+"""Decoder-only transformer LM (dense and VLM-backbone variants) — the
+counterpart of ``repro.models.transformer``.
+
+Parameters keep the reference's tree, per-layer weights stacked on a
+leading ``[L, ...]`` axis; the layer loop is a Python loop over views of
+that stack.  Entry points:
+
+  ``logits``      — forward over a whole sequence (scoring)
+  ``prefill``     — prompt forward that also fills the KV cache
+  ``decode_step`` — single-token step against the cache; its attention
+                    core is kernel B5 (``kernels/flash_decode.py``)
+
+KV cache layout: ``{"k", "v"}`` each ``[L, b, n_kv, smax, hd]`` in the
+compute dtype (the reference's is ``[L, b, smax, n_kv, hd]``), so one
+(batch, kv-head) row of a layer is one contiguous ``[smax, hd]`` slab, the
+row B5 reads.  ``prefill`` and ``decode_step`` write the cache they are
+given in place and return it.
+
+MoE layers, sliding-window attention and the training loss are not
+ported yet; they raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .common import ArchConfig, Params, Spec, map_specs
+from .layers import (_attend, _project_qkv, attention, attention_decode,
+                     attention_specs, embed, embed_specs, mlp, mlp_specs,
+                     rms_norm, unembed)
+
+
+def unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP Queue A item "
+        f"{item})")
+
+
+def _layer(params: Params, i: int) -> Params:
+    """Views of layer ``i`` of the stacked per-layer parameters."""
+    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+            for k, v in params.items()}
+
+
+def _tokens(tokens, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(tokens) if not isinstance(
+        tokens, torch.Tensor) else tokens, device=device).long()
+
+
+class DecoderLM:
+    """Config-driven decoder-only LM (families ``dense`` and ``vlm``)."""
+
+    def __init__(self, cfg: ArchConfig):
+        if cfg.family not in ("dense", "vlm"):
+            raise unported(f"the {cfg.family!r} family", "12b")
+        if cfg.sliding_window is not None:
+            raise unported(f"sliding-window attention ({cfg.name})", "12b")
+        self.cfg = cfg
+
+    # -- parameters ---------------------------------------------------------
+    def _layer_specs(self) -> Params:
+        cfg = self.cfg
+        dt = cfg.compute_dtype
+        return {
+            "ln1": Spec((cfg.d_model,), dt, init="ones"),
+            "ln2": Spec((cfg.d_model,), dt, init="ones"),
+            "attn": attention_specs(cfg),
+            "ffn": mlp_specs(cfg),
+        }
+
+    def param_specs(self) -> Params:
+        cfg = self.cfg
+        stack = map_specs(self._layer_specs(), lambda _, s: Spec(
+            (cfg.n_layers,) + s.shape, s.dtype, s.init, s.scale))
+        out = {
+            "embed": embed_specs(cfg),
+            "layers": stack,
+            "final_norm": Spec((cfg.d_model,), cfg.compute_dtype,
+                               init="ones"),
+        }
+        if cfg.n_patches:                                 # VLM stub projector
+            out["patch_proj"] = Spec((cfg.d_model, cfg.d_model),
+                                     cfg.compute_dtype)
+        return out
+
+    # -- forward (scoring) ----------------------------------------------------
+    def _block(self, x, p: Params, positions):
+        cfg = self.cfg
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        x = x + attention(h, p["attn"], cfg, positions)
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + mlp(h, p["ffn"])
+
+    def hidden_states(self, params: Params, x: torch.Tensor,
+                      positions: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Final-norm hidden states and the (zero) auxiliary loss."""
+        cfg = self.cfg
+        for i in range(cfg.n_layers):
+            x = self._block(x, _layer(params["layers"], i), positions)
+        return (rms_norm(x, params["final_norm"], cfg.norm_eps),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+
+    def inputs_embeds(self, params: Params, tokens,
+                      patches: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        dev = params["final_norm"].device
+        x = embed(_tokens(tokens, dev), params["embed"])
+        if self.cfg.n_patches and patches is not None:
+            patches = torch.as_tensor(patches, device=dev).to(x.dtype)
+            pe = torch.matmul(patches, params["patch_proj"])
+            x = torch.cat([pe, x], dim=1)
+        return x
+
+    def logits(self, params: Params, tokens,
+               patches: Optional[torch.Tensor] = None):
+        """``(logits [b, s, vocab], aux)`` over the whole sequence."""
+        x = self.inputs_embeds(params, tokens, patches)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        h, aux = self.hidden_states(params, x, positions)
+        return unembed(h, params["embed"]), aux
+
+    def loss(self, params: Params, batch):
+        raise unported("the training loss", "13")
+
+    # -- serving --------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int, device=None) -> Params:
+        """Zeroed KV cache ``[L, batch, n_kv, max_len, hd]`` on ``device``
+        (default: the first CUDA card)."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        shape = (cfg.n_layers, batch, cfg.n_kv, max_len, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
+                "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)}
+
+    def prefill(self, params: Params, tokens, cache: Params,
+                patches: Optional[torch.Tensor] = None):
+        """Prompt forward; returns ``(last-token logits [b, 1, vocab],
+        cache)`` with positions ``[0, s)`` of ``cache`` written in place
+        (``cache`` may be a view of some slots of a larger cache)."""
+        cfg = self.cfg
+        x = self.inputs_embeds(params, tokens, patches)
+        s = x.shape[1]
+        if s > cache["k"].shape[3]:
+            raise ValueError(f"a prompt of {s} positions does not fit a "
+                             f"cache of {cache['k'].shape[3]}")
+        positions = torch.arange(s, device=x.device)[None, :]
+        for i in range(cfg.n_layers):
+            p = _layer(params["layers"], i)
+            h = rms_norm(x, p["ln1"], cfg.norm_eps)
+            q, k, v = _project_qkv(h, p["attn"], cfg, positions)
+            x = x + _attend(q, k, v, positions, positions, p["attn"]["wo"],
+                            cfg)
+            cache["k"][i, :, :, :s] = k.transpose(1, 2)
+            cache["v"][i, :, :, :s] = v.transpose(1, 2)
+            h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+            x = x + mlp(h2, p["ffn"])
+        h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return unembed(h[:, -1:], params["embed"]), cache
+
+    def decode_step(self, params: Params, token, cache: Params, pos):
+        """token [b, 1], pos [b] current positions (each ``< smax``).
+        Returns ``(logits [b, 1, vocab], cache)``, the token's K/V written
+        into ``cache`` in place; each layer's attention is one B5 launch."""
+        cfg = self.cfg
+        dev = params["final_norm"].device
+        pos = torch.as_tensor(pos, device=dev).long()
+        lengths = pos.to(torch.int32).repeat_interleave(cfg.n_kv)
+        x = embed(_tokens(token, dev), params["embed"])
+        for i in range(cfg.n_layers):
+            p = _layer(params["layers"], i)
+            h = rms_norm(x, p["ln1"], cfg.norm_eps)
+            x = x + attention_decode(h, p["attn"], cfg, cache["k"][i],
+                                     cache["v"][i], pos, lengths)
+            h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+            x = x + mlp(h2, p["ffn"])
+        h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return unembed(h, params["embed"]), cache

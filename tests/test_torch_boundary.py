@@ -48,7 +48,9 @@ def test_import_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
             "repro_torch.obs, repro_torch.streaming, repro_torch.quant, "
             "repro_torch.distributed, repro_torch.kernels.graph_topk, "
-            "repro_torch.streaming.planner\n"
+            "repro_torch.streaming.planner, repro_torch.kernels.flash_decode, "
+            "repro_torch.configs, repro_torch.models, repro_torch.serving, "
+            "repro_torch.launch.serve\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"

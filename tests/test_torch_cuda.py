@@ -264,3 +264,107 @@ def test_sharded_pack_invariants_on_card(card, quantize):
         mono.mark_dead(dead)
         gm, dm = tss.pack_search(mono, q, None, k=20)
         assert np.array_equal(di, dm)
+
+
+# ---------------------------------------------------------------------------
+# Kernel B5: decode attention
+# ---------------------------------------------------------------------------
+def _decode_inputs(card, bkv, g, smax, hd, dtype, seed):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
+               for shape in ((bkv, g, hd), (bkv, smax, hd), (bkv, smax, hd)))
+    lengths = torch.randint(0, smax, (bkv,), generator=gen, device=card,
+                            dtype=torch.int32)
+    lengths[0] = 0
+    lengths[-1] = smax - 1
+    return q, k, v, lengths
+
+
+def _decode_close(got, want):
+    """Kernel and twin both accumulate in fp32 and round the output once:
+    fp32 within 2e-4 (the reference's kernel-test bound), bf16 within
+    1e-2 absolute + relative (two bf16 ulps at |o| ~ 1)."""
+    tol = 2e-4 if want.dtype == torch.float32 else 1e-2
+    g, w = got.float(), want.float()
+    return got.dtype == want.dtype and bool(
+        ((g - w).abs() <= tol + tol * w.abs()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 2, 8, 12, 16])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_decode_kernel_matches_twin(card, dtype, g, hd):
+    from repro_torch.kernels.flash_decode import (flash_decode_call,
+                                                  flash_decode_plain)
+    smax = 1000 + 37 * g              # ragged: no tile divides it
+    args = _decode_inputs(card, 5, g, smax, hd, dtype, g * 1000 + hd)
+    got = flash_decode_call(*args)
+    torch.cuda.synchronize()
+    assert _decode_close(got, flash_decode_plain(*args))
+
+
+@pytest.mark.parametrize("bkv,smax", [(600, 50), (1, 5000), (64, 4096)])
+def test_flash_decode_kernel_split_counts(card, bkv, smax):
+    """One split per row (many rows), many splits (one row), and the
+    batcher tick's shape; each call counts one launch."""
+    from repro_torch.kernels import flash_decode as fd
+    args = _decode_inputs(card, bkv, 2, smax, 128, torch.bfloat16, bkv)
+    before = fd.launch_count()
+    got = fd.flash_decode_call(*args)
+    torch.cuda.synchronize()
+    assert fd.launch_count() == before + 1
+    assert _decode_close(got, fd.flash_decode_plain(*args))
+
+
+@pytest.mark.parametrize("case", ["hd", "g", "dtype", "contiguous"])
+def test_flash_decode_kernel_refuses_what_it_cannot_take(card, case):
+    from repro_torch.kernels.flash_decode import flash_decode_call
+    q, k, v, ln = _decode_inputs(card, 4, 2, 64, 64, torch.float32, 3)
+    args = {
+        "hd": lambda: _decode_inputs(card, 4, 2, 64, 96, torch.float32, 3),
+        "g": lambda: _decode_inputs(card, 4, 17, 64, 64, torch.float32, 3),
+        "dtype": lambda: (q.half(), k.half(), v.half(), ln),
+        "contiguous": lambda: (q, k.transpose(1, 2).contiguous()
+                               .transpose(1, 2), v, ln),
+    }[case]()
+    with pytest.raises((ValueError, TypeError)):
+        flash_decode_call(*args)
+
+
+def test_decode_step_through_b5_matches_cpu(card):
+    """One prefill and two decode steps with ragged positions of a small
+    fp32 config (hd = 64, GQA group 2) on the card, where each layer's
+    attention is a B5 launch, against the same steps on CPU tensors (the
+    twin): logits and cache within 1e-4 (fp32 everywhere, TF32 off; only
+    the summation order differs)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import build_model, init_params
+    cfg = dataclasses.replace(get_config("internvl2-2b", smoke=True),
+                              head_dim=64, n_patches=0, dtype="float32")
+    model = build_model(cfg)
+    cpu_p = init_params(model.param_specs(), seed=0, device="cpu")
+
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else v.to(card)
+                for k, v in tree.items()}
+    gpu_p = to(cpu_p)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, size=(2, 11))
+    out = {}
+    for name, dev, p in (("cpu", torch.device("cpu"), cpu_p),
+                         ("card", card, gpu_p)):
+        cache = model.init_cache(2, 40, device=dev)
+        model.prefill(p, toks, cache)
+        pos = torch.as_tensor([11, 17])
+        before = fd.launch_count()
+        for step in range(2):
+            lg, cache = model.decode_step(p, [[3], [5 + step]], cache, pos)
+            pos = pos + 1
+        launched = fd.launch_count() - before
+        out[name] = (lg.cpu(), cache["k"].cpu(), cache["v"].cpu(), launched)
+    assert out["cpu"][3] == 0 and out["card"][3] == 2 * cfg.n_layers
+    for a, b in zip(out["cpu"][:3], out["card"][:3]):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-4,
+                                   atol=1e-4)
