@@ -36,6 +36,7 @@ import importlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -703,6 +704,7 @@ def measure_sharded(torch, keep: dict, nq: int, errs: dict) -> dict:
                                                 beam_step_scores)
     from repro_torch.kernels.quant_topk import (quant_topk_call,
                                                 quant_topk_plain)
+    b3mod = importlib.import_module("repro_torch.kernels.quant_topk")
     managers, f = keep["managers"], keep["sharded_filter"]
     q_np = keep["q_sharded"]
     dev = managers["fp32"].device
@@ -730,6 +732,12 @@ def measure_sharded(torch, keep: dict, nq: int, errs: dict) -> dict:
     ms = cuda_ms(torch, lambda: quant_topk_call(*args), iters=10)
     plain = cuda_ms(torch, lambda: quant_topk_plain(*args), iters=2,
                     warmup=1)
+    # the same codes with every candidate passing: the kernel computes all
+    # tiles, so this is its dense tile rate
+    every = (qs, bv.codes, torch.zeros_like(bv.s), bv.xsq, torch.as_tensor(
+        ops.encode_filter(None, m, mpad=m)[1], device=dev), "none", kpad,
+        "l2")
+    dense_ms = cuda_ms(torch, lambda: quant_topk_call(*every), iters=5)
     lo = p[0, :m]
     hi = p[1, :m]
 
@@ -741,15 +749,29 @@ def measure_sharded(torch, keep: dict, nq: int, errs: dict) -> dict:
         return torch.topk(dm.masked_fill_(~ok[:, None, :], float("inf")),
                           kpad, dim=-1, largest=False)
     lib = cuda_ms(torch, b3_library, iters=3, warmup=1)
+    # what these inputs need: the products of the candidates that pass the
+    # predicate; all metadata and norms, the passing codes, the folded
+    # queries and the lists.  dense_bound_ms counts every position, as the
+    # bound did before the kernel skipped tiles.
     npos = rows * cap
-    flops = 2.0 * nq * npos * d
-    nbytes = (npos * (d + 4 * m + 4) + 4.0 * rows * nq * d
-              + 8.0 * rows * nq * kpad)
+    passing, live, tiles = b3mod.live_tiles(bv.s, p, kind, b3mod.TN)
+    rest = 4.0 * rows * nq * d + 8.0 * rows * nq * kpad
+    flops = 2.0 * nq * passing * d
+    nbytes = npos * (4 * m + 4) + passing * d + rest
+    dense_flops = 2.0 * nq * npos * d
+    dense_bytes = npos * (d + 4 * m + 4) + rest
+    log(f"B3 bucket: {passing} of {npos} candidates pass "
+        f"({passing / npos:.4f}); {live} of {tiles} tiles of {b3mod.TN} "
+        f"are computed ({live / tiles:.4f})")
     out["quant_topk"] = dict(
         ms=ms, plain_ms=plain, library_ms=lib,
         bound_ms=max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
         bound_by="operations" if flops / PEAK_FP32_FLOPS
         >= nbytes / PEAK_BYTES else "bytes",
+        dense_bound_ms=max(dense_flops / PEAK_FP32_FLOPS,
+                           dense_bytes / PEAK_BYTES) * 1e3,
+        pass_share=passing / npos, live_tile_share=live / tiles,
+        dense_ms=dense_ms,
         shape=f"q[{nq},{d}] codes[{rows},{cap},{d}] int8 {kind} kpad={kpad}")
     for name in ("fp32", "int8"):
         calls = record_hops(torch, managers[name], q_np, f, 10)
@@ -1286,10 +1308,16 @@ def main() -> int:
     with Phase("1 build", torch):
         logs = _build.build()
         for name in _build.KERNEL_SOURCES:
-            lines = [ln for ln in logs.get(name, "").splitlines()
-                     if "ptxas" in ln]
+            lines = [ln.strip() for ln in logs.get(name, "").splitlines()
+                     if "ptxas" in ln or "spill" in ln]
             log(f"[{name}] " + ("\n[{name}] ".format(name=name).join(lines)
                                 if lines else "already built"))
+            if name in ("distance", "quant_topk"):
+                # the redesigned kernels must keep every register in the
+                # register file
+                spills = [int(v) for ln in lines for v in re.findall(
+                    r"(\d+) bytes spill (?:stores|loads)", ln)]
+                check(not any(spills), f"{name}: ptxas reports spills")
     errs = {"filtered_topk": 0.0, "pairwise_dist": 0.0, "quant_topk": 0.0,
             "graph_step": 0.0, "flash_decode": 0.0}
     with Phase("2 kernels vs twins", torch):
@@ -1324,9 +1352,13 @@ def main() -> int:
         meas = measure(torch, keep, QUERIES, D)
         meas.update(measure_sharded(torch, keep, QUERIES, errs))
         for name, mm in meas.items():
+            dense = (f"; every tile computed {mm['dense_ms']:.3f} ms, dense "
+                     f"bound {mm['dense_bound_ms']:.3f} ms"
+                     if "dense_bound_ms" in mm else "")
             log(f"{name} at {mm['shape']}: kernel {mm['ms']:.3f} ms, twin "
                 f"{mm['plain_ms']:.3f} ms, library {mm['library_ms']:.3f} "
-                f"ms, bound {mm['bound_ms']:.3f} ms ({mm['bound_by']})")
+                f"ms, bound {mm['bound_ms']:.3f} ms ({mm['bound_by']})"
+                + dense)
 
     # ---- the generation side, after the retrieval phases' tensors go ---
     keep.clear()
@@ -1375,6 +1407,10 @@ def main() -> int:
             "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
             "bound_by": mm["bound_by"], "library_ms": mm["library_ms"],
             "shape": mm["shape"]}
+        if name == "quant_topk":
+            for key in ("dense_bound_ms", "pass_share", "live_tile_share",
+                        "dense_ms"):
+                entry[key] = mm[key]
         if name == "graph_step":
             for key in ("neg_share", "distinct_rows"):
                 entry[key] = mm[key]

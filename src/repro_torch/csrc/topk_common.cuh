@@ -1,7 +1,9 @@
 // Shared pieces of the hand-written top-k kernels (B1 filtered_topk.cu,
 // B3 quant_topk.cu, B4 graph_step.cu): the packed spatio-temporal
 // predicate, the (distance, id) order, a warp-owned sorted top-kpad list in
-// shared memory, and the pass that merges per-split lists.
+// shared memory (one-by-one inserts, or a sorted batch of 32 merged in
+// one pass, or a row of 128 whose survivors are compacted first), and the
+// pass that merges per-split lists.
 //
 // Everything sits in an anonymous namespace: each kernel source builds
 // into its own shared library, so nothing here is linked twice.
@@ -87,6 +89,120 @@ __device__ void warp_offer(float* Ld, int* Li, int kpad, float dv, int id,
     if (less_di(cd, ci, Ld[kpad - 1], Li[kpad - 1]))
       warp_insert(Ld, Li, kpad, cd, ci, lane);
   }
+}
+
+// Offer each lane's (dv, id) to the warp's list, like warp_offer.  When
+// more than two lanes beat the list's last entry, their 32 values are
+// sorted across the warp (bitonic, by (distance, id)) and merged into the
+// list in one pass: every list entry moves up by the number of new values
+// below it, every new value lands at its rank in the old list plus its
+// own index.  The list that results is the one the inserts give.
+__device__ void warp_offer_many(float* Ld, int* Li, int kpad, float dv,
+                                int id, bool valid, int lane) {
+  const bool ok = valid && isfinite(dv) &&
+                  less_di(dv, id, Ld[kpad - 1], Li[kpad - 1]);
+  const unsigned mask = __ballot_sync(FULL, ok);
+  if (!mask) return;
+  if (__popc(mask) <= 2) {
+    warp_offer(Ld, Li, kpad, dv, id, ok, lane);
+    return;
+  }
+  float d = ok ? dv : INFINITY;
+  int i = ok ? id : INT_MAX;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+    for (int st = size >> 1; st > 0; st >>= 1) {
+      const float od = __shfl_xor_sync(FULL, d, st);
+      const int oi = __shfl_xor_sync(FULL, i, st);
+      const bool keep_min = ((lane & st) == 0) == ((lane & size) == 0);
+      if (keep_min ? less_di(od, oi, d, i) : less_di(d, i, od, oi)) {
+        d = od;
+        i = oi;
+      }
+    }
+  const int cnt = __popc(mask);     // lanes 0 .. cnt-1 hold the new values
+  int rank = 0;                     // entries of the old list below mine
+  if (lane < cnt) {
+    int hi = kpad;
+    while (rank < hi) {
+      const int mid = (rank + hi) >> 1;
+      if (less_di(Ld[mid], Li[mid], d, i)) rank = mid + 1;
+      else hi = mid;
+    }
+  }
+  const int first = __shfl_sync(FULL, rank, 0);  // entries below it stay
+  const float d31 = __shfl_sync(FULL, d, 31);
+  const int i31 = __shfl_sync(FULL, i, 31);
+  for (int base = (kpad - 1) & ~31; base + 32 > first; base -= 32) {
+    const int p = base + lane;
+    float ld = INFINITY;
+    int li = INT_MAX;
+    if (p < kpad) { ld = Ld[p]; li = Li[p]; }
+    int r = 0;                       // new values below entry p
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      const float bd = __shfl_sync(FULL, d, r + s - 1);
+      const int bi = __shfl_sync(FULL, i, r + s - 1);
+      if (less_di(bd, bi, ld, li)) r += s;
+    }
+    if (r == 31 && less_di(d31, i31, ld, li)) r = 32;
+    __syncwarp();
+    if (p < kpad && r > 0 && p + r < kpad) { Ld[p + r] = ld; Li[p + r] = li; }
+    __syncwarp();
+  }
+  if (lane < cnt && rank + lane < kpad) {
+    Ld[rank + lane] = d;
+    Li[rank + lane] = i;
+  }
+  __syncwarp();
+}
+
+// Offer a row of 128 candidates (`row`, distances in shared memory; ids
+// id0 + column) to the warp's list.  The candidates that beat the list's
+// last entry are counted first; when at most 32 do, they are compacted
+// into one batch (the row's storage is reused for it) and offered at
+// once, else the four batches of 32 are offered in turn.
+__device__ void warp_offer_row(float* Ld, int* Li, int kpad, float* row,
+                               int id0, int lane) {
+  const float td = Ld[kpad - 1];
+  const int ti = Li[kpad - 1];
+  float v[4];
+  unsigned bits[4];
+  int total = 0;
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    v[h] = row[h * 32 + lane];
+    const bool ok = isfinite(v[h]) && less_di(v[h], id0 + h * 32 + lane,
+                                              td, ti);
+    bits[h] = __ballot_sync(FULL, ok);
+    total += __popc(bits[h]);
+  }
+  if (total == 0) return;
+  if (total > 32) {
+#pragma unroll
+    for (int h = 0; h < 4; ++h)
+      warp_offer_many(Ld, Li, kpad, v[h], id0 + h * 32 + lane, true, lane);
+    return;
+  }
+  int* ids = reinterpret_cast<int*>(row + 32);
+  __syncwarp();
+  int base = 0;
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    if ((bits[h] >> lane) & 1u) {
+      const int pos = base + __popc(bits[h] & ((1u << lane) - 1u));
+      row[pos] = v[h];
+      ids[pos] = id0 + h * 32 + lane;
+    }
+    base += __popc(bits[h]);
+  }
+  __syncwarp();
+  const bool mine = lane < total;
+  const float dv = mine ? row[lane] : INFINITY;
+  const int id = mine ? ids[lane] : INT_MAX;
+  __syncwarp();
+  warp_offer_many(Ld, Li, kpad, dv, id, mine, lane);
 }
 
 // Pass 2: one warp per (g, query) merges the splits' sorted lists.

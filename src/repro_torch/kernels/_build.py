@@ -41,11 +41,10 @@ _SIGNATURES = {
         "repro_filtered_topk_tile_q": ([_I], _I),
     },
     "distance": {
-        "repro_pairwise_dist": ([_P, _P, _P] + [_I] * 5 + [_P], _I),
+        "repro_pairwise_dist": ([_P, _P, _P] + [_I] * 10 + [_P], _I),
     },
     "quant_topk": {
-        "repro_quant_topk": ([_P] * 9 + [_I] * 11 + [_L] * 4 + [_P], _I),
-        "repro_quant_topk_tile_q": ([_I], _I),
+        "repro_quant_topk": ([_P] * 9 + [_I] * 14 + [_L] * 4 + [_P], _I),
     },
     "graph_step": {
         "repro_graph_step": ([_P] * 8 + [_I] * 10 + [_P], _I),

@@ -20,14 +20,22 @@ import threading
 import torch
 
 from . import ref
-from .filtered_topk import FILTER_KINDS, _splits
+from .distance import THREADS, copy_width, ring_bytes
+from .filtered_topk import FILTER_KINDS
 
-__all__ = ["quant_topk_call", "quant_topk_plain", "launch_count",
-           "reset_launch_count", "MAX_KPAD"]
+__all__ = ["quant_topk_call", "quant_topk_plain", "launch_config",
+           "live_tiles", "launch_count", "reset_launch_count", "MAX_KPAD"]
 
 _KIND_CODE = {k: i for i, k in enumerate(FILTER_KINDS)}
 _MAX_M = 16
 MAX_KPAD = 2048
+# csrc/quant_topk.cu's layout, mirrored (the C launcher refuses a
+# shared-memory size that differs from its own)
+TN = 128                # candidates per tile: the unit of the tile skip
+MAX_TILES = 64          # candidate tiles per split
+SM_BYTES = 233_472      # shared memory of one H100 SM (228 KiB)
+MAX_SMEM = 232_448      # dynamic shared memory one block may ask for
+RESERVED = 1024         # shared memory the runtime keeps per resident block
 
 _LAUNCHES = [0]
 _LAUNCH_LOCK = threading.Lock()
@@ -56,6 +64,60 @@ def quant_topk_plain(qs, codes, s, xsq, params, kind: str, kpad: int,
         outs_d.append(dd)
         outs_i.append(ii)
     return torch.stack(outs_d), torch.stack(outs_i)
+
+
+def smem_bytes(tq: int, kpad: int) -> int:
+    """Dynamic shared memory of one pass-1 block (``QCfg::smem``): the
+    ring and k-major copies, the distance tile, two norm rows, the ok bits
+    and live-tile list of ``MAX_TILES`` tiles, and the ``tq`` per-query
+    lists of ``kpad`` (distance, id) pairs."""
+    return (ring_bytes(tq, TN, 4, 1) + tq * TN * 4 + 2 * TN * 4
+            + MAX_TILES * (TN // 32) * 4 + (MAX_TILES + 1) * 4
+            + tq * kpad * 8)
+
+
+def tile_q(kpad: int) -> int:
+    """Query rows per block: the largest tile (64 down to 8) at which two
+    blocks share an SM, else the largest that fits one block.  (A 128-row
+    tile never fits two blocks: its lists and distance tile alone take
+    128 KiB at kpad 64.)"""
+    tiles = (64, 32, 16, 8)
+    for tq in tiles:
+        if 2 * (smem_bytes(tq, kpad) + RESERVED) <= SM_BYTES:
+            return tq
+    return next(tq for tq in tiles if smem_bytes(tq, kpad) <= MAX_SMEM)
+
+
+def launch_config(g: int, bq: int, n: int, d: int, kpad: int, q_ptr: int,
+                  c_ptr: int, sms: int) -> dict:
+    """The launch configuration of ``csrc/quant_topk.cu`` for ``g`` rows
+    of ``n`` candidates: the query tile, the dynamic shared memory and the
+    blocks that fit on one SM (``SM_BYTES``, ``RESERVED`` per block),
+    the candidate-axis splits (about four waves of resident blocks, at
+    most ``MAX_TILES`` tiles and at least two per split; split ``s`` takes
+    tiles ``s, s + splits, ...``), the copy widths of the folded queries
+    (fp32) and the codes (int8), and the threads."""
+    tq = tile_q(kpad)
+    smem = smem_bytes(tq, kpad)
+    per_sm = 2 if 2 * (smem + RESERVED) <= SM_BYTES else 1
+    tiles = max(1, math.ceil(n / TN))
+    want = math.ceil(4 * per_sm * sms / max(math.ceil(bq / tq) * g, 1))
+    splits = max(1, min(want, tiles // 2), math.ceil(tiles / MAX_TILES))
+    return dict(tq=tq, splits=splits,
+                vec_q=copy_width(q_ptr, d * 4), vec_c=copy_width(c_ptr, d),
+                smem=smem, threads=THREADS, min_blocks=per_sm)
+
+
+def live_tiles(s, params, kind: str, tile: int = TN):
+    """Plain count of what the kernel's tile skip leaves: ``(passing
+    candidates, live tiles, tiles)`` over a ``[g, n, m]`` metadata stack,
+    where a tile is ``tile`` consecutive candidates of one row (from 0)
+    and is live when at least one of them passes the predicate."""
+    ok = ref.filter_mask_ref(s, kind, params)             # [g, n]
+    g, n = ok.shape
+    pad = (-n) % tile
+    okp = torch.nn.functional.pad(ok, (0, pad)).reshape(g, -1, tile)
+    return (int(ok.sum()), int(okp.any(-1).sum()), g * okp.shape[1])
 
 
 def _check(qs, codes, s, xsq, params, kind, kpad, metric):
@@ -112,7 +174,7 @@ def quant_topk_call(qs, codes, s, xsq, params, kind: str, kpad: int,
     dev = codes.device
     out_d = torch.empty((g, bq, kpad), dtype=torch.float32, device=dev)
     out_i = torch.empty((g, bq, kpad), dtype=torch.int32, device=dev)
-    if bq == 0:
+    if bq == 0 or g == 0:
         return out_d, out_i
     if n == 0:
         return out_d.fill_(float("inf")), out_i.fill_(-1)
@@ -120,10 +182,10 @@ def quant_topk_call(qs, codes, s, xsq, params, kind: str, kpad: int,
                                  for t in (qs, codes, s, xsq, params))
     from ._build import load
     lib = load("quant_topk")
-    tq = lib.repro_quant_topk_tile_q(kpad)
-    splits = _splits(dev, n, math.ceil(bq / tq) * g)
-    chunk = math.ceil(math.ceil(n / splits) / 64) * 64
-    splits = math.ceil(n / chunk)
+    cfg = launch_config(g, bq, n, d, kpad, qs.data_ptr(), codes.data_ptr(),
+                        torch.cuda.get_device_properties(dev)
+                        .multi_processor_count)
+    splits = cfg["splits"]
     if splits > 1:
         part_d = torch.empty((g, splits, bq, kpad), dtype=torch.float32,
                              device=dev)
@@ -139,8 +201,9 @@ def quant_topk_call(qs, codes, s, xsq, params, kind: str, kpad: int,
             qs.data_ptr(), codes.data_ptr(), s.data_ptr(), xsq.data_ptr(),
             params.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), pd, pi,
             g, bq, n, d, m, mp, kpad, _KIND_CODE[kind],
-            0 if metric == "l2" else 1, splits, chunk,
-            q_gs, codes.stride(0), s.stride(0), xsq.stride(0), stream)
+            0 if metric == "l2" else 1, cfg["tq"], splits, cfg["vec_q"],
+            cfg["vec_c"], cfg["smem"], q_gs, codes.stride(0),
+            s.stride(0), xsq.stride(0), stream)
     if err != 0:
         raise RuntimeError(f"quant_topk CUDA launch failed: cudaError {err}")
     with _LAUNCH_LOCK:

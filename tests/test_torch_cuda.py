@@ -115,6 +115,60 @@ def test_pairwise_dist_kernel_matches_twin(card, dtype, metric):
     assert bool(((got - want).abs() <= _tol(q.float(), x.float())).all())
 
 
+def _assert_topk_close(kd, ki, td, ti, tol):
+    """Kernel lists (kd, ki) vs twin lists (td, ti): the same misses,
+    distances within ``tol``, ids equal where the twin's distance is not
+    an fp32 tie with a neighbour."""
+    fin = torch.isfinite(td)
+    assert torch.equal(torch.isfinite(kd), fin)
+    assert torch.equal(ki < 0, ~fin)
+    assert bool((torch.where(fin, (kd - td).abs(), 0) <= tol).all())
+    gap = td[..., 1:] - td[..., :-1]
+    inf = torch.full_like(td[..., :1], float("inf"))
+    uniq = fin & (torch.cat([inf, gap], -1) > 2 * tol) \
+        & (torch.cat([gap, inf], -1) > 2 * tol)
+    uniq[..., -1] = False
+    assert torch.equal(ki[uniq], ti[uniq])
+
+
+def _shifted(t, offset):
+    """A copy of ``t`` whose storage starts ``offset`` elements into its
+    buffer, so its base pointer is off 16-byte alignment for offset > 0."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("layout", ["aligned", "row_view", "element"])
+@pytest.mark.parametrize("d", [3, 130, 768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pairwise_dist_kernel_ragged_shapes(card, dtype, d, layout):
+    """Batches and candidate counts that no tile divides, widths whose rows
+    are not 16-byte multiples, and operands whose base pointer is off
+    16-byte alignment (a row view ``x[1:]``, a storage offset of one
+    element): every copy width of the mainloop against the twin."""
+    from repro_torch.kernels.distance import launch_config
+    x, _ = make_dataset_device(1301, d, 3, seed=d, device=card)
+    q = (x[:150] + 0.05).to(dtype)
+    x = x.to(dtype)
+    if layout == "row_view":
+        x = x[1:]
+    elif layout == "element":
+        q, x = _shifted(q, 1), _shifted(x, 1)
+    cfg = launch_config(q.shape[0], x.shape[0], d, dtype, q.data_ptr(),
+                        x.data_ptr())
+    if layout == "element":
+        assert cfg["vec_x"] < 16 and cfg["vec_q"] < 16
+    for metric in ("l2", "ip"):
+        got = pairwise_dist_call(q, x, metric)
+        torch.cuda.synchronize()
+        want = pairwise_dist_plain(q, x, metric)
+        assert got.shape == (150, x.shape[0])
+        assert bool(((got - want).abs()
+                     <= _tol(q.float(), x.float())).all())
+
+
 def _quant_stack(card, g=3, cap=1200, d=96, m=3):
     """Ragged int8 shard stacks (codes, metadata, xsq, scales) and their
     dequantized rows, from the same data as ``_data``."""
@@ -162,6 +216,55 @@ def test_quant_topk_kernel_matches_twin(card, kind, metric, kpad):
         & (torch.cat([gap, inf], -1) > 2 * tol)
     uniq[..., -1] = False
     assert torch.equal(ki[uniq], ti[uniq])
+
+
+@pytest.mark.parametrize("d", [96, 130])
+@pytest.mark.parametrize("kpad", [16, 64, 256, 2048])
+def test_quant_topk_kernel_skips_failing_tiles(card, kpad, d):
+    """A stack where whole candidate tiles fail the predicate: row 1 is
+    all ``PAD_META``, rows 0 and 2 are time-ordered and the interval
+    t >= 0.55 rejects their first halves.  The codes of every failing
+    candidate are replaced by random bytes: the kernel's answer must not
+    change (bit for bit) and must equal the twin's on the clean stack."""
+    from repro_torch.core import IntervalFilter
+    from repro_torch.kernels.quant_topk import (live_tiles, quant_topk_call,
+                                                quant_topk_plain)
+    from repro_torch.kernels.ref import filter_mask_ref
+    from repro_torch.quant import encode_segment
+    g, cap, m = 3, 1200, 3
+    x, s = make_dataset_device(g * cap, d, m, seed=kpad + d, device=card)
+    q = x[:37] + 0.05
+    sq = encode_segment(x.cpu().numpy())
+    codes = torch.as_tensor(sq.codes, device=card).reshape(g, cap, d)
+    scales = torch.as_tensor(sq.scales, device=card)[None].expand(g, d)
+    xsq = torch.as_tensor(sq.xsq, device=card).reshape(g, cap)
+    ss = s.reshape(g, cap, m).clone()
+    ss[:, :, 2] = torch.arange(cap, device=card) / cap       # event time
+    ss[1] = ops.PAD_META
+    kind, params = ops.encode_filter(IntervalFilter(dim=2, lo=0.55), m,
+                                     mpad=m)
+    params = torch.as_tensor(params, device=card)
+    _, live, tiles = live_tiles(ss, params, kind)
+    assert 0 < live < tiles - 8       # whole tiles of rows 0 and 2 fail
+    ok = filter_mask_ref(ss, kind, params)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(kpad)
+    noise = torch.randint(-128, 128, codes.shape, generator=gen,
+                          device=card, dtype=torch.int8)
+    dirty = torch.where(ok[..., None], codes, noise)
+    qs = (q[None] * scales[:, None, :]).contiguous()
+    for metric in ("l2", "ip"):
+        kd, ki = quant_topk_call(qs, dirty, ss, xsq, params, kind, kpad,
+                                 metric)
+        cd, ci = quant_topk_call(qs, codes, ss, xsq, params, kind, kpad,
+                                 metric)
+        torch.cuda.synchronize()
+        assert torch.equal(kd, cd) and torch.equal(ki, ci)
+        td, ti = quant_topk_plain(qs, codes, ss, xsq, params, kind, kpad,
+                                  metric)
+        deq = codes.float() * scales[:, None, :]
+        _assert_topk_close(kd, ki, td, ti,
+                           _tol(q, deq.reshape(-1, d))[None])
 
 
 @pytest.mark.parametrize("quantized", [False, True])
