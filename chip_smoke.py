@@ -147,6 +147,27 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
+def device_ms(torch, fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn``: the summed durations of the kernels
+    ``iters`` calls ran, under ``torch.profiler``.  Unlike ``cuda_ms`` it
+    leaves out the host's gaps between launches, which decide the
+    back-to-back time of a kernel shorter than its wrapper's host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    check(us > 0, "torch.profiler recorded no device time")
+    return us / 1e3 / iters
+
+
 def compare_topk(torch, kd, ki, td, ti, scale, what: str) -> float:
     """Kernel (kd, ki) vs twin (td, ti) top-k lists [..., kpad].  The
     misses must coincide, distances agree within ``1e-5 * scale`` (fp32
@@ -474,9 +495,55 @@ def main_index(torch, dev, n: int, d: int, nq: int, seed: int) -> None:
                   "< 0.8")
 
 
-def main_stream(torch, dev, n: int, d: int, nq: int, seed: int) -> None:
+class B1Tiles:
+    """While active, records the metadata, parameters, kind and shape of
+    every B1 launch made through ``repro_torch.kernels.ops`` (the scans of
+    the read paths), so that the share of candidate tiles the kernel
+    multiplies can be counted after the timed work (``take``)."""
+
+    def __enter__(self):
+        self.ops = importlib.import_module("repro_torch.kernels.ops")
+        self.real, self.calls = self.ops.filtered_topk_call, []
+
+        def recorder(q, x, s, params, kind, kpad, metric="l2"):
+            self.calls.append((s, params, kind, q.shape[1], x.shape[2],
+                               kpad))
+            return self.real(q, x, s, params, kind, kpad, metric=metric)
+        self.ops.filtered_topk_call = recorder
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.filtered_topk_call = self.real
+        return False
+
+    def take(self):
+        """``(computed tiles, tiles)`` of 128 candidates over the launches
+        recorded since the last call: each split of a launch packs its
+        passing candidates into tiles of 128 (``_pass1.packed_tiles``,
+        with the launch's own splits)."""
+        import torch
+        from repro_torch.kernels import _pass1
+        b1 = importlib.import_module("repro_torch.kernels.filtered_topk")
+        done = tiles = 0
+        for s, params, kind, bq, d, kpad in self.calls:
+            g, n = s.shape[:2]
+            sms = (torch.cuda.get_device_properties(s.device)
+                   .multi_processor_count if s.device.type == "cuda"
+                   else 132)
+            splits = b1.launch_config(g, bq, n, d, kpad, 0, 0,
+                                      sms)["splits"]
+            for gi in range(g):
+                p = params[gi if params.shape[0] > 1 else 0]
+                done += _pass1.packed_tiles(s[gi:gi + 1], p, kind, splits)
+            tiles += g * -(-n // _pass1.TN)
+        self.calls = []
+        return done, tiles
+
+
+def main_stream(torch, dev, n: int, d: int, nq: int, seed: int) -> float:
     """Default streaming SegmentManager: time-ordered ingest with seals,
-    sync and async compaction, delete, TTL expiry, filtered queries."""
+    sync and async compaction, delete, TTL expiry, filtered queries.
+    Returns the share of candidate tiles B1 computed in the queries."""
     import numpy as np
     from repro_torch.core import BoxFilter, ComposeFilter, IntervalFilter
     from repro_torch.core.workloads import make_dataset_device, recall
@@ -526,11 +593,15 @@ def main_stream(torch, dev, n: int, d: int, nq: int, seed: int) -> None:
                       hi=np.asarray([0.8, 0.8, 1.0], np.float32)),
             IntervalFilter(dim=2, lo=0.6, hi=1.0), "and"),
     }
+    tiles = [0, 0]           # B1's computed and all candidate tiles
     for name, f in filters.items():
         before = b1.launch_count()
-        t0 = time.perf_counter()
-        gids, dd, stats = mgr.query(q, f, k=k, ef=128, return_stats=True)
-        dt = time.perf_counter() - t0
+        with B1Tiles() as b1_tiles:
+            t0 = time.perf_counter()
+            gids, dd, stats = mgr.query(q, f, k=k, ef=128,
+                                        return_stats=True)
+            dt = time.perf_counter() - t0
+        live_t, all_t = b1_tiles.take()
         scans = b1.launch_count() - before
         check(any(t.kind == "delta" and not t.pruned for t in stats),
               f"stream {name}: the delta buffer was pruned")
@@ -545,8 +616,12 @@ def main_stream(torch, dev, n: int, d: int, nq: int, seed: int) -> None:
         searched = sum(1 for t in stats if not t.pruned)
         log(f"stream {name}: recall@10 {r:.4f}, {nq / dt:.0f} QPS (host "
             f"clock), {searched} of {len(stats)} segments searched, B1 "
-            f"launches {scans}")
+            f"launches {scans}, computing {live_t} of {all_t} candidate "
+            f"tiles ({live_t / max(all_t, 1):.4f})")
         check(r >= 0.8, f"stream {name}: recall {r:.4f} < 0.8")
+        tiles[0] += live_t
+        tiles[1] += all_t
+    return tiles[0] / max(tiles[1], 1)
 
 
 def main_sharded(torch, dev, n: int, d: int, nq: int, seed: int,
@@ -628,6 +703,7 @@ def main_sharded(torch, dev, n: int, d: int, nq: int, seed: int,
                                           device=dev)
         gt = gt.cpu().numpy()
         truth[fname] = np.where(gt >= 0, live[np.maximum(gt, 0)], -1)
+    tiles_5b = [0, 0]        # B1's computed and all candidate tiles
     for name, mgr in managers.items():
         for fname, f in filters.items():
             for rp in ("scan", "graph", "auto"):
@@ -635,10 +711,14 @@ def main_sharded(torch, dev, n: int, d: int, nq: int, seed: int,
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 base = torch.cuda.memory_allocated()
-                t0 = time.perf_counter()
-                gids, dd = mgr.query(q, f, k=k, read_path=rp)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
+                with B1Tiles() as b1_tiles:
+                    t0 = time.perf_counter()
+                    gids, dd = mgr.query(q, f, k=k, read_path=rp)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                live_t, all_t = b1_tiles.take()
+                tiles_5b[0] += live_t
+                tiles_5b[1] += all_t
                 # the query's own working memory (visited bitmaps, beams,
                 # kernel outputs)
                 work = (torch.cuda.max_memory_allocated() - base) / 2**30
@@ -651,10 +731,12 @@ def main_sharded(torch, dev, n: int, d: int, nq: int, seed: int,
                 r = recall(gids, truth[fname])
                 plan = ({c: p.mode for c, p in mgr.last_plan.items()}
                         if rp != "scan" and mgr.last_plan else {})
+                b1_share = (f", B1 computes {live_t} of {all_t} candidate "
+                            f"tiles ({live_t / all_t:.4f})" if all_t else "")
                 log(f"sharded[{name}] {fname} read_path={rp}: recall@10 "
                     f"{r:.4f}, {nq / dt:.0f} QPS (host clock), query "
                     f"working memory {work:.3f} GiB, launches {used}, "
-                    f"plan {plan}")
+                    f"plan {plan}{b1_share}")
                 floor = 0.999 if (name, rp) == ("fp32", "scan") else 0.8
                 check(r >= floor, f"sharded {name}/{fname}/{rp}: recall "
                       f"{r:.4f} < {floor}")
@@ -666,8 +748,11 @@ def main_sharded(torch, dev, n: int, d: int, nq: int, seed: int,
     log(f"sharded pack device bytes: fp32 {nb['fp32']}, int8 {nb['int8']},"
         f" ratio {nb['fp32'] / max(nb['int8'], 1):.3f}; buckets "
         f"{managers['fp32'].stats()['pack_buckets']}")
+    log(f"sharded phase: B1 computed {tiles_5b[0]} of {tiles_5b[1]} "
+        f"candidate tiles of 128 ({tiles_5b[0] / max(tiles_5b[1], 1):.4f})")
     keep.update(managers=managers, q_sharded=q,
-                sharded_filter=filters["box_and_interval"])
+                sharded_filter=filters["box_and_interval"],
+                b1_live_share_5b=tiles_5b[0] / max(tiles_5b[1], 1))
     return launches
 
 
@@ -700,6 +785,7 @@ def measure_sharded(torch, keep: dict, nq: int, errs: dict) -> dict:
     twin on these inputs, then timed beside the twin, its bound and a
     library yardstick."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels._pass1 import packed_tiles
     from repro_torch.kernels.graph_topk import (beam_step_plain,
                                                 beam_step_scores)
     from repro_torch.kernels.quant_topk import (quant_topk_call,
@@ -755,14 +841,19 @@ def measure_sharded(torch, keep: dict, nq: int, errs: dict) -> dict:
     # bound did before the kernel skipped tiles.
     npos = rows * cap
     passing, live, tiles = b3mod.live_tiles(bv.s, p, kind, b3mod.TN)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = b3mod.launch_config(rows, nq, cap, d, kpad, 0, 0,
+                                 sms)["splits"]
+    packed = packed_tiles(bv.s, p, kind, splits)
     rest = 4.0 * rows * nq * d + 8.0 * rows * nq * kpad
     flops = 2.0 * nq * passing * d
     nbytes = npos * (4 * m + 4) + passing * d + rest
     dense_flops = 2.0 * nq * npos * d
     dense_bytes = npos * (d + 4 * m + 4) + rest
     log(f"B3 bucket: {passing} of {npos} candidates pass "
-        f"({passing / npos:.4f}); {live} of {tiles} tiles of {b3mod.TN} "
-        f"are computed ({live / tiles:.4f})")
+        f"({passing / npos:.4f}), {live} of {tiles} tiles of {b3mod.TN} "
+        f"hold one ({live / tiles:.4f}); the kernel multiplies {packed} "
+        f"packed tiles ({packed / tiles:.4f})")
     out["quant_topk"] = dict(
         ms=ms, plain_ms=plain, library_ms=lib,
         bound_ms=max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
@@ -771,6 +862,7 @@ def measure_sharded(torch, keep: dict, nq: int, errs: dict) -> dict:
         dense_bound_ms=max(dense_flops / PEAK_FP32_FLOPS,
                            dense_bytes / PEAK_BYTES) * 1e3,
         pass_share=passing / npos, live_tile_share=live / tiles,
+        tile_share=packed / tiles,
         dense_ms=dense_ms,
         shape=f"q[{nq},{d}] codes[{rows},{cap},{d}] int8 {kind} kpad={kpad}")
     for name in ("fp32", "int8"):
@@ -850,10 +942,12 @@ def measure_sharded(torch, keep: dict, nq: int, errs: dict) -> dict:
 def measure(torch, keep: dict, nq: int, d: int) -> dict:
     """Kernel, twin and library times at the main path's shapes."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels._pass1 import TN, live_tiles, packed_tiles
     from repro_torch.kernels.distance import (pairwise_dist_call,
                                               pairwise_dist_plain)
     from repro_torch.kernels.filtered_topk import (filtered_topk_call,
                                                    filtered_topk_plain)
+    b1mod = importlib.import_module("repro_torch.kernels.filtered_topk")
     x, s, q, f = keep["x"], keep["s"], keep["q"], keep["box"]
     n, m, k = x.shape[0], s.shape[1], 10
     kind, params = ops.encode_filter(f, m, mpad=m)
@@ -873,9 +967,40 @@ def measure(torch, keep: dict, nq: int, d: int) -> dict:
         return torch.topk(dm.masked_fill_(~ok[None, :], float("inf")), k,
                           dim=1, largest=False)
     b1_lib = cuda_ms(torch, b1_library, iters=3, warmup=1)
-    flops = 2.0 * nq * n * d
-    nbytes = 4.0 * (n * d + n * m + nq * d + 4 * m) + 8.0 * nq * kpad
+
+    def b1_gather_library():
+        # the filter is shared by every query: gather the passing vectors
+        # once, then one product over them (the nonzero syncs the host)
+        idx = ((s >= lo) & (s <= hi)).all(1).nonzero()[:, 0]
+        xg = x[idx]
+        dm = (q * q).sum(1)[:, None] - 2.0 * torch.matmul(q, xg.T) \
+            + (xg * xg).sum(1)[None, :]
+        dd, jj = torch.topk(dm, k, dim=1, largest=False)
+        return dd, idx[jj]
+    kd, ki = filtered_topk_call(*args)
+    gd, gi = b1_gather_library()
+    compare_topk(torch, kd[0, :, :k], ki[0, :, :k], gd, gi.int(),
+                 row_scale(torch, q, x), "B1 vs the gather-first "
+                 "library call")
+    b1_gather = cuda_ms(torch, b1_gather_library, iters=3, warmup=1)
+    # what these inputs need: the products of the candidates that pass
+    # the filter (the same for every query); every metadata row, the
+    # passing vectors, the queries and the lists.  dense_bound_ms counts
+    # every candidate, as the dense library call does.
+    passing, live, tiles = live_tiles(s[None], p[0], kind)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = b1mod.launch_config(1, nq, n, d, kpad, 0, 0, sms)["splits"]
+    packed = packed_tiles(s[None], p[0], kind, splits)
+    rest = 4.0 * (n * m + nq * d + 4 * m) + 8.0 * nq * kpad
+    flops = 2.0 * nq * passing * d
+    nbytes = 4.0 * passing * d + rest
     b1_bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    b1_dense = max(2.0 * nq * n * d / PEAK_FP32_FLOPS,
+                   (4.0 * n * d + rest) / PEAK_BYTES) * 1e3
+    log(f"B1 scan: {passing} of {n} candidates pass ({passing / n:.4f}), "
+        f"{live} of {tiles} tiles of {TN} hold one; the kernel multiplies "
+        f"{packed} packed tiles ({packed / tiles:.4f}); library: "
+        f"gather-first {b1_gather:.3f} ms, dense {b1_lib:.3f} ms")
     npd = keep["npd"]
     xp = x[:npd]
     b2_ms = cuda_ms(torch, lambda: pairwise_dist_call(q, xp), iters=10)
@@ -891,6 +1016,8 @@ def measure(torch, keep: dict, nq: int, d: int) -> dict:
             ms=b1_ms, plain_ms=b1_plain, library_ms=b1_lib,
             bound_ms=b1_bound, bound_by="operations"
             if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes",
+            dense_bound_ms=b1_dense, pass_share=passing / n,
+            gather_library_ms=b1_gather, scan_tile_share=packed / tiles,
             shape=f"q[{nq},{d}] x[{n},{d}] s[{n},{m}] {kind} k={k}"),
         "pairwise_dist": dict(
             ms=b2_ms, plain_ms=b2_plain, library_ms=b2_lib,
@@ -1229,8 +1356,12 @@ def measure_decode(torch, keep: dict, errs: dict) -> dict:
         f"[{bkv}, {g}, {smax}, {hd}] {q.dtype}, lengths per slot "
         f"{lengths.view(SLOTS, -1)[:, 0].tolist()}, {filled} filled "
         f"positions of {bkv * smax}: agree, max |err| {e:.3g}")
-    ms = cuda_ms(torch, lambda: flash_decode_call(q, k, v, lengths),
-                 iters=50, warmup=5)
+    # CUDA events around back-to-back calls, the timer of every kernel
+    # here; and device time alone (the kernel is about as short as its
+    # wrapper's host time, which events around back-to-back calls include)
+    kern = lambda: flash_decode_call(q, k, v, lengths)  # noqa: E731
+    ms = cuda_ms(torch, kern, iters=50, warmup=5)
+    ms_device = device_ms(torch, kern, iters=50, warmup=5)
     plain = cuda_ms(torch, lambda: flash_decode_plain(q, k, v, lengths),
                     iters=10)
     import torch.nn.functional as F
@@ -1249,6 +1380,7 @@ def measure_decode(torch, keep: dict, errs: dict) -> dict:
                      - flash_decode_plain(q, k, v, lengths).float()
                      ).abs().max())
     lib = cuda_ms(torch, library, iters=50, warmup=5)
+    lib_device = device_ms(torch, library, iters=50, warmup=5)
     es = q.element_size()
     nbytes = 2.0 * filled * hd * es + 2.0 * q.numel() * es + 4.0 * bkv
     flops = 4.0 * filled * g * hd
@@ -1258,7 +1390,8 @@ def measure_decode(torch, keep: dict, errs: dict) -> dict:
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
                 bound_by="bytes" if nbytes / PEAK_BYTES
                 >= flops / PEAK_FP32_FLOPS else "operations",
-                filled=filled,
+                filled=filled, device_ms=ms_device,
+                library_device_ms=lib_device,
                 shape=f"layer {RECORD_LAYER} of batcher tick {RECORD_TICK}:"
                       f" q[{bkv},{g},{hd}] k/v[{bkv},{smax},{hd}] "
                       f"{str(q.dtype).replace('torch.', '')}, {filled} "
@@ -1312,7 +1445,8 @@ def main() -> int:
                      if "ptxas" in ln or "spill" in ln]
             log(f"[{name}] " + ("\n[{name}] ".format(name=name).join(lines)
                                 if lines else "already built"))
-            if name in ("distance", "quant_topk"):
+            if name in ("filtered_topk", "distance", "quant_topk",
+                        "flash_decode"):
                 # the redesigned kernels must keep every register in the
                 # register file
                 spills = [int(v) for ln in lines for v in re.findall(
@@ -1335,7 +1469,8 @@ def main() -> int:
     with Phase("4 index", torch):
         main_index(torch, dev, N_INDEX, D, QUERIES, SEED)
     with Phase("5 streaming", torch):
-        main_stream(torch, dev, N_STREAM, D, QUERIES, SEED)
+        keep["b1_live_share_stream"] = main_stream(torch, dev, N_STREAM, D,
+                                                   QUERIES, SEED)
     launches = {"filtered_topk": b1.launch_count(),
                 "pairwise_dist": b2.launch_count()}
     log(f"main-path launches (phases 3-5): {launches}")
@@ -1352,15 +1487,20 @@ def main() -> int:
         meas = measure(torch, keep, QUERIES, D)
         meas.update(measure_sharded(torch, keep, QUERIES, errs))
         for name, mm in meas.items():
-            dense = (f"; every tile computed {mm['dense_ms']:.3f} ms, dense "
-                     f"bound {mm['dense_bound_ms']:.3f} ms"
-                     if "dense_bound_ms" in mm else "")
+            extra = "".join(
+                f"; {what} {mm[key]:.3f} ms" for key, what in (
+                    ("dense_ms", "every tile computed"),
+                    ("dense_bound_ms", "dense bound"),
+                    ("gather_library_ms", "gather-first library"))
+                if key in mm)
             log(f"{name} at {mm['shape']}: kernel {mm['ms']:.3f} ms, twin "
                 f"{mm['plain_ms']:.3f} ms, library {mm['library_ms']:.3f} "
                 f"ms, bound {mm['bound_ms']:.3f} ms ({mm['bound_by']})"
-                + dense)
+                + extra)
 
     # ---- the generation side, after the retrieval phases' tensors go ---
+    b1_live = {"stream": keep["b1_live_share_stream"],
+               "sharded": keep["b1_live_share_5b"]}
     keep.clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1374,9 +1514,11 @@ def main() -> int:
     with Phase("7d B5 on the recorded tick (measure)", torch):
         meas["flash_decode"] = mm = measure_decode(torch, keep, errs)
         log(f"flash_decode at {mm['shape']}: kernel {mm['ms']:.4f} ms, "
-            f"twin {mm['plain_ms']:.4f} ms, library "
-            f"{mm['library_ms']:.4f} ms, bound {mm['bound_ms']:.4f} ms "
-            f"({mm['bound_by']})")
+            f"library {mm['library_ms']:.4f} ms (events around back-to-"
+            f"back calls), twin {mm['plain_ms']:.4f} ms; device time kernel "
+            f"{mm['device_ms']:.4f} ms, library "
+            f"{mm['library_device_ms']:.4f} ms; bound {mm['bound_ms']:.4f} "
+            f"ms ({mm['bound_by']})")
     g = keep["generation"]
     log(f"generation: prefill {g['prefill_ms_mean']:.2f} ms per request, "
         f"decode {g['decode_tick_ms_mean']:.3f} ms per tick (p50 "
@@ -1407,9 +1549,18 @@ def main() -> int:
             "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
             "bound_by": mm["bound_by"], "library_ms": mm["library_ms"],
             "shape": mm["shape"]}
+        if name == "flash_decode":
+            entry["device_ms"] = mm["device_ms"]
+            entry["library_device_ms"] = mm["library_device_ms"]
+        if name == "filtered_topk":
+            for key in ("dense_bound_ms", "pass_share", "gather_library_ms",
+                        "scan_tile_share"):
+                entry[key] = mm[key]
+            entry["tile_share"] = {"stream": b1_live["stream"],
+                                   "sharded": b1_live["sharded"]}
         if name == "quant_topk":
             for key in ("dense_bound_ms", "pass_share", "live_tile_share",
-                        "dense_ms"):
+                        "tile_share", "dense_ms"):
                 entry[key] = mm[key]
         if name == "graph_step":
             for key in ("neg_share", "distinct_rows"):

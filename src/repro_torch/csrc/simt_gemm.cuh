@@ -1,5 +1,6 @@
 // One pipelined fp32 SIMT mainloop for Hopper (sm_90a), shared by the
-// distance kernels (B2 distance.cu, B3 quant_topk.cu).
+// distance kernels (B2 distance.cu; B1 filtered_topk.cu and B3
+// quant_topk.cu through topk_pass1.cuh).
 //
 // A block owns a TQ x TN output tile and computes
 //   acc[i][j] = sum_k a[q0 + i, k] * b[c0 + j, k]
@@ -82,41 +83,51 @@ __host__ __device__ constexpr int raw_bytes(int rows) {
   return rows * raw_ld<S>() * (int)sizeof(S);
 }
 
-// Stage rows [row0, row0 + R) x depth [k0, k0 + BK) of a row-major global
-// [nrows, d] array (row stride `ld` elements) into `dst`; rows >= nrows and
-// depths >= d are zero.  `vec` is the copy width in bytes (16 or 4: the
-// caller has checked that d * sizeof(S) and the base pointer are multiples
-// of it, so a copy is either wholly inside the row or wholly past d), or 0
-// for element loads.
-template <typename S, int R>
-__device__ __forceinline__ void stage(S* dst, const S* __restrict__ src,
-                                      long long ld, int row0, int nrows,
-                                      int k0, int d, int vec) {
+// Stage depth [k0, k0 + BK) of R rows of a row-major global [rows, d]
+// array (row stride `ld` elements) into `dst`: tile row r is global row
+// row_of(r), or zeros where that is < 0; depths >= d are zero.  `vec` is
+// the copy width in bytes (16 or 4: the caller has checked that
+// d * sizeof(S) and the base pointer are multiples of it, so a copy is
+// either wholly inside the row or wholly past d), or 0 for element loads.
+template <typename S, int R, typename RowOf>
+__device__ __forceinline__ void stage_rows(S* dst, const S* __restrict__ src,
+                                           long long ld, RowOf row_of,
+                                           int k0, int d, int vec) {
   constexpr int LD = raw_ld<S>();
   const int tid = threadIdx.x;
   if (vec == 16) {
     constexpr int E = 16 / sizeof(S);
     constexpr int PER = BK / E;
     for (int i = tid; i < R * PER; i += NTH) {
-      const int r = i / PER, c = (i % PER) * E, row = row0 + r, k = k0 + c;
-      const bool ok = row < nrows && k < d;
+      const int r = i / PER, c = (i % PER) * E, row = row_of(r), k = k0 + c;
+      const bool ok = row >= 0 && k < d;
       cp16(dst + r * LD + c, src + (ok ? (long long)row * ld + k : 0), ok);
     }
   } else if (vec == 4) {
     constexpr int E = 4 / sizeof(S);
     constexpr int PER = BK / E;
     for (int i = tid; i < R * PER; i += NTH) {
-      const int r = i / PER, c = (i % PER) * E, row = row0 + r, k = k0 + c;
-      const bool ok = row < nrows && k < d;
+      const int r = i / PER, c = (i % PER) * E, row = row_of(r), k = k0 + c;
+      const bool ok = row >= 0 && k < d;
       cp4(dst + r * LD + c, src + (ok ? (long long)row * ld + k : 0), ok);
     }
   } else {
     for (int i = tid; i < R * BK; i += NTH) {
-      const int r = i / BK, c = i % BK, row = row0 + r, k = k0 + c;
+      const int r = i / BK, c = i % BK, row = row_of(r), k = k0 + c;
       dst[r * LD + c] =
-          (row < nrows && k < d) ? src[(long long)row * ld + k] : S(0);
+          (row >= 0 && k < d) ? src[(long long)row * ld + k] : S(0);
     }
   }
+}
+
+// Stage rows [row0, row0 + R) (stage_rows; rows >= nrows are zero).
+template <typename S, int R>
+__device__ __forceinline__ void stage(S* dst, const S* __restrict__ src,
+                                      long long ld, int row0, int nrows,
+                                      int k0, int d, int vec) {
+  stage_rows<S, R>(
+      dst, src, ld,
+      [=](int r) { return row0 + r < nrows ? row0 + r : -1; }, k0, d, vec);
 }
 
 // Sixteen staged bytes -> their E = 16 / sizeof(S) elements as fp32,

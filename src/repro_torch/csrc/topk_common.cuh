@@ -158,23 +158,26 @@ __device__ void warp_offer_many(float* Ld, int* Li, int kpad, float dv,
   __syncwarp();
 }
 
-// Offer a row of 128 candidates (`row`, distances in shared memory; ids
-// id0 + column) to the warp's list.  The candidates that beat the list's
-// last entry are counted first; when at most 32 do, they are compacted
-// into one batch (the row's storage is reused for it) and offered at
-// once, else the four batches of 32 are offered in turn.
+// Offer a row of 128 candidates (`row`, distances in shared memory; the
+// candidate of column c has id id_of(c)) to the warp's list.  The
+// candidates that beat the list's last entry are counted first; when at
+// most 32 do, they are compacted into one batch (the row's storage is
+// reused for it) and offered at once, else the four batches of 32 are
+// offered in turn.
+template <typename IdOf>
 __device__ void warp_offer_row(float* Ld, int* Li, int kpad, float* row,
-                               int id0, int lane) {
+                               IdOf id_of, int lane) {
   const float td = Ld[kpad - 1];
   const int ti = Li[kpad - 1];
   float v[4];
+  int id[4];
   unsigned bits[4];
   int total = 0;
 #pragma unroll
   for (int h = 0; h < 4; ++h) {
     v[h] = row[h * 32 + lane];
-    const bool ok = isfinite(v[h]) && less_di(v[h], id0 + h * 32 + lane,
-                                              td, ti);
+    id[h] = id_of(h * 32 + lane);
+    const bool ok = isfinite(v[h]) && less_di(v[h], id[h], td, ti);
     bits[h] = __ballot_sync(FULL, ok);
     total += __popc(bits[h]);
   }
@@ -182,7 +185,7 @@ __device__ void warp_offer_row(float* Ld, int* Li, int kpad, float* row,
   if (total > 32) {
 #pragma unroll
     for (int h = 0; h < 4; ++h)
-      warp_offer_many(Ld, Li, kpad, v[h], id0 + h * 32 + lane, true, lane);
+      warp_offer_many(Ld, Li, kpad, v[h], id[h], true, lane);
     return;
   }
   int* ids = reinterpret_cast<int*>(row + 32);
@@ -193,16 +196,16 @@ __device__ void warp_offer_row(float* Ld, int* Li, int kpad, float* row,
     if ((bits[h] >> lane) & 1u) {
       const int pos = base + __popc(bits[h] & ((1u << lane) - 1u));
       row[pos] = v[h];
-      ids[pos] = id0 + h * 32 + lane;
+      ids[pos] = id[h];
     }
     base += __popc(bits[h]);
   }
   __syncwarp();
   const bool mine = lane < total;
   const float dv = mine ? row[lane] : INFINITY;
-  const int id = mine ? ids[lane] : INT_MAX;
+  const int mid = mine ? ids[lane] : INT_MAX;
   __syncwarp();
-  warp_offer_many(Ld, Li, kpad, dv, id, mine, lane);
+  warp_offer_many(Ld, Li, kpad, dv, mid, mine, lane);
 }
 
 // Pass 2: one warp per (g, query) merges the splits' sorted lists.

@@ -37,8 +37,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "filtered_topk": {
-        "repro_filtered_topk": ([_P] * 8 + [_I] * 11 + [_L] * 4 + [_P], _I),
-        "repro_filtered_topk_tile_q": ([_I], _I),
+        "repro_filtered_topk": ([_P] * 8 + [_I] * 14 + [_L] * 4 + [_P], _I),
     },
     "distance": {
         "repro_pairwise_dist": ([_P, _P, _P] + [_I] * 10 + [_P], _I),
@@ -50,8 +49,7 @@ _SIGNATURES = {
         "repro_graph_step": ([_P] * 8 + [_I] * 10 + [_P], _I),
     },
     "flash_decode": {
-        "repro_flash_decode": ([_P] * 7 + [_I] * 7 + [_P], _I),
-        "repro_flash_decode_tile": ([_I, _I], _I),
+        "repro_flash_decode": ([_P] * 8 + [_I] * 8 + [_P], _I),
     },
 }
 

@@ -19,16 +19,18 @@ import threading
 
 import torch
 
-from . import ref
+from . import _pass1, ref
+from ._hopper import blocks_per_sm
+from .distance import THREADS, copy_width
 
 __all__ = ["FILTER_KINDS", "filtered_topk_call", "filtered_topk_plain",
-           "launch_count", "reset_launch_count"]
+           "launch_config", "launch_count", "reset_launch_count",
+           "MAX_KPAD"]
 
 FILTER_KINDS = ref.FILTER_KINDS
 _KIND_CODE = {k: i for i, k in enumerate(FILTER_KINDS)}
-_TN = 64                      # candidate tile of the CUDA kernel
 _MAX_M = 16                   # metadata columns the CUDA kernel reads
-_MAX_KPAD = 1024
+MAX_KPAD = 1024
 
 _LAUNCHES = [0]
 _LAUNCH_LOCK = threading.Lock()
@@ -89,12 +91,23 @@ def _check(q, x, s, params, kind, kpad, metric):
             raise TypeError(f"{name} must be float32, got {t.dtype}")
 
 
-def _splits(dev, n: int, tiles: int) -> int:
-    """Candidate-axis split count: about four waves of blocks over the
-    card's SMs, with at least four candidate tiles per split."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = math.ceil(4 * sms / max(tiles, 1))
-    return max(1, min(want, math.ceil(n / (4 * _TN))))
+def launch_config(g: int, bq: int, n: int, d: int, kpad: int, q_ptr: int,
+                  x_ptr: int, sms: int) -> dict:
+    """The launch configuration of ``csrc/filtered_topk.cu`` (pass 1 of
+    ``csrc/topk_pass1.cuh`` over fp32 candidates) for ``g`` rows of ``n``
+    candidates: the query tile (``_pass1.tile_q``), the dynamic shared
+    memory and the blocks that share one SM, the candidate-axis splits
+    (``_pass1.splits_for``, as B3), the copy widths of the queries and the
+    candidates (16, 4 or 0 bytes), and the threads."""
+    tq = _pass1.tile_q(kpad, 4)
+    smem = _pass1.smem_bytes(tq, kpad, 4)
+    per_sm = blocks_per_sm(smem)
+    splits = _pass1.splits_for(math.ceil(bq / tq) * g,
+                               max(1, math.ceil(n / _pass1.TN)),
+                               per_sm * sms)
+    return dict(tq=tq, splits=splits, vec_q=copy_width(q_ptr, d * 4),
+                vec_x=copy_width(x_ptr, d * 4), smem=smem, threads=THREADS,
+                min_blocks=per_sm)
 
 
 def filtered_topk_call(q, x, s, params, kind: str, kpad: int,
@@ -113,8 +126,8 @@ def filtered_topk_call(q, x, s, params, kind: str, kpad: int,
     if m > _MAX_M:
         raise ValueError(f"the CUDA kernel reads at most {_MAX_M} metadata "
                          f"columns, got {m}")
-    if kpad > _MAX_KPAD:
-        raise ValueError(f"the CUDA kernel supports kpad <= {_MAX_KPAD}, "
+    if kpad > MAX_KPAD:
+        raise ValueError(f"the CUDA kernel supports kpad <= {MAX_KPAD}, "
                          f"got {kpad}")
     dev = x.device
     out_d = torch.empty((g, bq, kpad), dtype=torch.float32, device=dev)
@@ -126,10 +139,10 @@ def filtered_topk_call(q, x, s, params, kind: str, kpad: int,
     q, x, s, params = (t.contiguous() for t in (q, x, s, params))
     from ._build import load
     lib = load("filtered_topk")
-    tq = lib.repro_filtered_topk_tile_q(kpad)
-    splits = _splits(dev, n, math.ceil(bq / tq) * g)
-    chunk = math.ceil(math.ceil(n / splits) / _TN) * _TN
-    splits = math.ceil(n / chunk)
+    cfg = launch_config(g, bq, n, d, kpad, q.data_ptr(), x.data_ptr(),
+                        torch.cuda.get_device_properties(dev)
+                        .multi_processor_count)
+    splits = cfg["splits"]
     if splits > 1:
         part_d = torch.empty((g, splits, bq, kpad), dtype=torch.float32,
                              device=dev)
@@ -145,8 +158,9 @@ def filtered_topk_call(q, x, s, params, kind: str, kpad: int,
             q.data_ptr(), x.data_ptr(), s.data_ptr(), params.data_ptr(),
             out_d.data_ptr(), out_i.data_ptr(), pd, pi,
             g, bq, n, d, m, mp, kpad, _KIND_CODE[kind],
-            0 if metric == "l2" else 1, splits, chunk,
-            gs(q), x.stride(0), s.stride(0), gs(params), stream)
+            0 if metric == "l2" else 1, cfg["tq"], splits, cfg["vec_q"],
+            cfg["vec_x"], cfg["smem"], gs(q), x.stride(0), s.stride(0),
+            gs(params), stream)
     if err != 0:
         raise RuntimeError(f"filtered_topk CUDA launch failed: "
                            f"cudaError {err}")

@@ -19,8 +19,11 @@ import threading
 
 import torch
 
-from . import ref
-from .distance import THREADS, copy_width, ring_bytes
+from . import _pass1, ref
+from ._hopper import (MAX_SMEM, RESERVED, SM_BYTES,  # noqa: F401
+                      blocks_per_sm)
+from ._pass1 import MAX_TILES, TN, live_tiles  # noqa: F401
+from .distance import THREADS, copy_width
 from .filtered_topk import FILTER_KINDS
 
 __all__ = ["quant_topk_call", "quant_topk_plain", "launch_config",
@@ -29,14 +32,6 @@ __all__ = ["quant_topk_call", "quant_topk_plain", "launch_config",
 _KIND_CODE = {k: i for i, k in enumerate(FILTER_KINDS)}
 _MAX_M = 16
 MAX_KPAD = 2048
-# csrc/quant_topk.cu's layout, mirrored (the C launcher refuses a
-# shared-memory size that differs from its own)
-TN = 128                # candidates per tile: the unit of the tile skip
-MAX_TILES = 64          # candidate tiles per split
-SM_BYTES = 233_472      # shared memory of one H100 SM (228 KiB)
-MAX_SMEM = 232_448      # dynamic shared memory one block may ask for
-RESERVED = 1024         # shared memory the runtime keeps per resident block
-
 _LAUNCHES = [0]
 _LAUNCH_LOCK = threading.Lock()
 
@@ -67,25 +62,14 @@ def quant_topk_plain(qs, codes, s, xsq, params, kind: str, kpad: int,
 
 
 def smem_bytes(tq: int, kpad: int) -> int:
-    """Dynamic shared memory of one pass-1 block (``QCfg::smem``): the
-    ring and k-major copies, the distance tile, two norm rows, the ok bits
-    and live-tile list of ``MAX_TILES`` tiles, and the ``tq`` per-query
-    lists of ``kpad`` (distance, id) pairs."""
-    return (ring_bytes(tq, TN, 4, 1) + tq * TN * 4 + 2 * TN * 4
-            + MAX_TILES * (TN // 32) * 4 + (MAX_TILES + 1) * 4
-            + tq * kpad * 8)
+    """Dynamic shared memory of one pass-1 block over int8 codes
+    (``csrc/topk_pass1.cuh``, ``_pass1.smem_bytes``)."""
+    return _pass1.smem_bytes(tq, kpad, 1)
 
 
 def tile_q(kpad: int) -> int:
-    """Query rows per block: the largest tile (64 down to 8) at which two
-    blocks share an SM, else the largest that fits one block.  (A 128-row
-    tile never fits two blocks: its lists and distance tile alone take
-    128 KiB at kpad 64.)"""
-    tiles = (64, 32, 16, 8)
-    for tq in tiles:
-        if 2 * (smem_bytes(tq, kpad) + RESERVED) <= SM_BYTES:
-            return tq
-    return next(tq for tq in tiles if smem_bytes(tq, kpad) <= MAX_SMEM)
+    """Query rows per block at ``kpad`` (``_pass1.tile_q``)."""
+    return _pass1.tile_q(kpad, 1)
 
 
 def launch_config(g: int, bq: int, n: int, d: int, kpad: int, q_ptr: int,
@@ -99,25 +83,12 @@ def launch_config(g: int, bq: int, n: int, d: int, kpad: int, q_ptr: int,
     (fp32) and the codes (int8), and the threads."""
     tq = tile_q(kpad)
     smem = smem_bytes(tq, kpad)
-    per_sm = 2 if 2 * (smem + RESERVED) <= SM_BYTES else 1
-    tiles = max(1, math.ceil(n / TN))
-    want = math.ceil(4 * per_sm * sms / max(math.ceil(bq / tq) * g, 1))
-    splits = max(1, min(want, tiles // 2), math.ceil(tiles / MAX_TILES))
+    per_sm = blocks_per_sm(smem)
+    splits = _pass1.splits_for(math.ceil(bq / tq) * g,
+                               max(1, math.ceil(n / TN)), per_sm * sms)
     return dict(tq=tq, splits=splits,
                 vec_q=copy_width(q_ptr, d * 4), vec_c=copy_width(c_ptr, d),
                 smem=smem, threads=THREADS, min_blocks=per_sm)
-
-
-def live_tiles(s, params, kind: str, tile: int = TN):
-    """Plain count of what the kernel's tile skip leaves: ``(passing
-    candidates, live tiles, tiles)`` over a ``[g, n, m]`` metadata stack,
-    where a tile is ``tile`` consecutive candidates of one row (from 0)
-    and is live when at least one of them passes the predicate."""
-    ok = ref.filter_mask_ref(s, kind, params)             # [g, n]
-    g, n = ok.shape
-    pad = (-n) % tile
-    okp = torch.nn.functional.pad(ok, (0, pad)).reshape(g, -1, tile)
-    return (int(ok.sum()), int(okp.any(-1).sum()), g * okp.shape[1])
 
 
 def _check(qs, codes, s, xsq, params, kind, kpad, metric):

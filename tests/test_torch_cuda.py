@@ -267,6 +267,51 @@ def test_quant_topk_kernel_skips_failing_tiles(card, kpad, d):
                            _tol(q, deq.reshape(-1, d))[None])
 
 
+@pytest.mark.parametrize("d", [96, 130, 768])
+@pytest.mark.parametrize("kpad", [16, 128, 1024])
+def test_filtered_topk_kernel_skips_failing_tiles(card, kpad, d):
+    """B1 on a time-ordered stack where whole candidate tiles fail: row 1
+    is all ``PAD_META``, row 2 ends in a ragged ``PAD_META`` tail, and the
+    interval t >= 0.55 rejects the first halves of the rows.  The vectors
+    of every failing candidate are replaced by random values (large ones,
+    so a norm that leaks from one live tile into the next, or a product of
+    a skipped tile, would show): the answer must not change, bit for bit,
+    and must equal the twin's on the clean stack."""
+    from repro_torch.kernels.filtered_topk import launch_config
+    from repro_torch.kernels.quant_topk import live_tiles
+    from repro_torch.kernels.ref import filter_mask_ref
+    g, cap, m = 3, 1200, 3
+    x, s = make_dataset_device(g * cap, d, m, seed=kpad + d, device=card)
+    q = x[:37] + 0.05
+    xs = x.reshape(g, cap, d)
+    ss = s.reshape(g, cap, m).clone()
+    ss[:, :, 2] = torch.arange(cap, device=card) / cap       # event time
+    ss[1] = ops.PAD_META
+    ss[2, cap - 77:] = ops.PAD_META
+    kind, params = ops.encode_filter(IntervalFilter(dim=2, lo=0.55), m,
+                                     mpad=m)
+    params = torch.as_tensor(params, device=card)
+    _, live, tiles = live_tiles(ss, params, kind)
+    assert 0 < live < tiles - 8       # whole tiles of every row fail
+    cfg = launch_config(g, q.shape[0], cap, d, kpad, q.data_ptr(),
+                        xs.data_ptr(), 132)
+    assert cfg["vec_x"] == (16 if d % 4 == 0 else 4)
+    ok = filter_mask_ref(ss, kind, params)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(kpad + d)
+    noise = 100 * torch.randn(xs.shape, generator=gen, device=card)
+    dirty = torch.where(ok[..., None], xs, noise)
+    p = params[None]
+    for metric in ("l2", "ip"):
+        kd, ki = filtered_topk_call(q[None], dirty, ss, p, kind, kpad,
+                                    metric)
+        cd, ci = filtered_topk_call(q[None], xs, ss, p, kind, kpad, metric)
+        torch.cuda.synchronize()
+        assert torch.equal(kd, cd) and torch.equal(ki, ci)
+        td, ti = filtered_topk_plain(q[None], xs, ss, p, kind, kpad, metric)
+        _assert_topk_close(kd, ki, td, ti, _tol(q, x)[None])
+
+
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 @pytest.mark.parametrize("kind", list(_FILTERS))
@@ -418,6 +463,38 @@ def test_flash_decode_kernel_split_counts(card, bkv, smax):
     torch.cuda.synchronize()
     assert fd.launch_count() == before + 1
     assert _decode_close(got, fd.flash_decode_plain(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_decode_kernel_ragged_lengths(card, dtype, hd):
+    """96 rows holding 1, 2, one tile + 1, four tiles, four tiles + 1 and
+    smax keys (inclusive lengths 0, 1, tile, 4 tiles - 1, 4 tiles,
+    smax - 1, in turn) in one call, for every group size the kernel is
+    compiled for and one it rounds up (3).  The rows' tiles outnumber the
+    grid, so block ranges cross row boundaries and long rows are cut into
+    segments that the fused combine joins.  The call runs twice in a row:
+    the combine's per-row counters must be left at 0, so the second answer
+    equals the first bit for bit."""
+    from repro_torch.kernels.flash_decode import (flash_decode_call,
+                                                  flash_decode_plain,
+                                                  launch_config)
+    bkv, smax = 96, 2000
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for g in (1, 2, 3, 8, 16):
+        cfg = launch_config(bkv, g, smax, hd, dtype, sms)
+        ts = cfg["tile"]
+        pattern = [0, 1, ts, 4 * ts - 1, 4 * ts, smax - 1]
+        lengths = torch.tensor([pattern[i % 6] for i in range(bkv)],
+                               dtype=torch.int32, device=card)
+        tiles = int(((lengths.long() + ts) // ts).sum())
+        assert tiles > cfg["blocks"]
+        q, k, v, _ = _decode_inputs(card, bkv, g, smax, hd, dtype, hd + g)
+        first = flash_decode_call(q, k, v, lengths)
+        second = flash_decode_call(q, k, v, lengths)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        assert _decode_close(first, flash_decode_plain(q, k, v, lengths))
 
 
 @pytest.mark.parametrize("case", ["hd", "g", "dtype", "contiguous"])
