@@ -366,6 +366,10 @@ def phase_kernels_sharded(torch, dev, x, s, q, filters, errs) -> None:
     b, c = q.shape[0], 512
     pos = torch.as_tensor(rng.integers(-1, g * cap, size=(b, c)),
                           dtype=torch.int32, device=dev)
+    # the lanes a traversal hands B4: about 80% -1, whole rows included
+    sparse = torch.where(torch.as_tensor(rng.uniform(size=(b, c)) < 0.2,
+                                         device=dev), pos, -1)
+    sparse[:b // 4] = -1
     for name, block, sc, ref_x in (("fp32", xb, None, xb),
                                    ("int8", codes, scales, deq)):
         tol = 1e-5 * row_scale(torch, q, ref_x.reshape(-1, d))
@@ -373,12 +377,13 @@ def phase_kernels_sharded(torch, dev, x, s, q, filters, errs) -> None:
             params = torch.as_tensor(ops.encode_filter(f, m, mpad=m)[1],
                                      device=dev)
             for metric in ("l2", "ip"):
-                err = compare_hop(
-                    torch, (q, pos, block, ss, params, kind, metric, sc),
-                    tol, f"B4 {name} d={d} {kind}/{metric}")
-                errs["graph_step"] = max(errs["graph_step"], err)
-    log(f"B4 vs twin: fp32 and int8 blocks x 5 kinds x 2 metrics, "
-        f"b={b} c={c} d={d} with missing positions agree; max |err| "
+                for lanes, pp in (("dense", pos), ("sparse", sparse)):
+                    err = compare_hop(
+                        torch, (q, pp, block, ss, params, kind, metric, sc),
+                        tol, f"B4 {name} d={d} {kind}/{metric} {lanes}")
+                    errs["graph_step"] = max(errs["graph_step"], err)
+    log(f"B4 vs twin: fp32 and int8 blocks x 5 kinds x 2 metrics x dense "
+        f"and sparse lanes, b={b} c={c} d={d} agree; max |err| "
         f"{errs['graph_step']:.3g}")
 
 
@@ -758,32 +763,45 @@ def main_sharded(torch, dev, n: int, d: int, nq: int, seed: int,
 
 def record_hops(torch, mgr, q, f, k: int) -> dict:
     """One forced-graph read of ``mgr``, recording the arguments of every
-    B4 launch: ``{block data_ptr: [(q, pos, block, meta, params, kind,
-    metric, scales), ...]}`` in launch order (the seed scoring, then one
-    per hop)."""
+    B4 launch and the hop's raw lanes: ``{block data_ptr: [((q, pos,
+    block, meta, params, kind, metric, scales), raw), ...]}`` in launch
+    order (the seed scoring, then one per hop).  ``pos`` holds the lanes
+    the traversal keeps (-1 elsewhere), ``raw`` every lane before that
+    mask (the seeds, or the frontier's neighbours): the argument of the
+    traversal's ``_unique_mask`` just before the launch."""
     gmod = importlib.import_module("repro_torch.kernels.graph_topk")
-    real = gmod.beam_step_scores
+    real, real_unique = gmod.beam_step_scores, gmod._unique_mask
     calls: dict = {}
+    raw = []
+
+    def unique(ids):
+        raw.append(ids.to(torch.int32))
+        return real_unique(ids)
 
     def recorder(q, pos, x, s, params, kind, metric="l2", scales=None):
         calls.setdefault(x.data_ptr(), []).append(
-            (q, pos.clone(), x, s, params, kind, metric, scales))
+            ((q, pos.clone(), x, s, params, kind, metric, scales),
+             raw.pop()))
         return real(q, pos, x, s, params, kind, metric, scales=scales)
-    gmod.beam_step_scores = recorder
+    gmod.beam_step_scores, gmod._unique_mask = recorder, unique
     try:
         mgr.query(q, f, k=k, read_path="graph")
     finally:
-        gmod.beam_step_scores = real
+        gmod.beam_step_scores, gmod._unique_mask = real, real_unique
     return calls
 
 
 def measure_sharded(torch, keep: dict, nq: int, errs: dict) -> dict:
     """B3 over the largest int8 bucket (kpad 64, the over-fetch of k = 10
-    at rerank_multiple 4) and one B4 hop as a traversal makes it (the
+    at rerank_multiple 4), and B4 on one hop as a traversal makes it (the
     middle hop of a forced-graph box-and-interval read, on the largest
-    bucket it traverses) in the fp32 and int8 managers.  Each is held against its
-    twin on these inputs, then timed beside the twin, its bound and a
-    library yardstick."""
+    bucket it traverses) in the fp32 and int8 managers, on two lane sets:
+    the lanes the traversal hands B4 (the fresh ones, -1 elsewhere) and
+    the hop's raw lanes (every neighbour of the expanded frontier).  Each
+    is held against its twin on these inputs, then timed beside the twin,
+    its bound and a library yardstick.  The forced-graph read is also
+    timed whole on the host clock, with its hops and the fresh share of
+    every hop."""
     from repro_torch.kernels import ops
     from repro_torch.kernels._pass1 import packed_tiles
     from repro_torch.kernels.graph_topk import (beam_step_plain,
@@ -866,77 +884,121 @@ def measure_sharded(torch, keep: dict, nq: int, errs: dict) -> dict:
         dense_ms=dense_ms,
         shape=f"q[{nq},{d}] codes[{rows},{cap},{d}] int8 {kind} kpad={kpad}")
     for name in ("fp32", "int8"):
-        calls = record_hops(torch, managers[name], q_np, f, 10)
+        mgr = managers[name]
+        # the read alone on the host clock, then again with B4's arguments
+        # recorded (the same hops: the traversal is deterministic)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.query(q_np, f, k=10, read_path="graph")
+        torch.cuda.synchronize()
+        read_ms = (time.perf_counter() - t0) * 1e3
+        calls = record_hops(torch, mgr, q_np, f, 10)
         check(bool(calls), f"B4 {name}: the graph read traversed no bucket")
+        n_read, live_all, valid_all, shares = 0, 0, 0, []
+        for seq in calls.values():
+            per = []
+            for args, raw in seq[1:]:
+                live = int((args[1] >= 0).sum())
+                valid = int((raw >= 0).sum())
+                per.append(live / max(valid, 1))
+                live_all += live
+                valid_all += valid
+            n_read += len(per)
+            shares.append(" ".join(f"{v:.2f}" for v in per))
+        fresh = live_all / max(valid_all, 1)
+        log(f"B4 {name}: the forced-graph read takes {read_ms:.2f} ms for "
+            f"{n_read} hops over {len(calls)} buckets, "
+            f"{read_ms / max(n_read, 1):.3f} ms per hop (host clock); "
+            f"fresh share of the valid lanes {fresh:.4f}, per hop: "
+            + " | ".join(shares))
         # the largest traversed bucket, its middle hop (launch 0 scores
         # the seeds)
         seq = max(calls.values(),
-                  key=lambda c: c[0][2].shape[0] * c[0][2].shape[1])
+                  key=lambda c: c[0][0][2].shape[0] * c[0][0][2].shape[1])
         n_hops = len(seq) - 1
         check(n_hops >= 1, f"B4 {name}: the traversal made no hop")
         hop = (n_hops + 1) // 2
-        args = seq[hop]
+        args, raw = seq[hop]
         del calls, seq
-        hq, pos, block, s_blk, hp, hkind, metric, sc = args
-        rows, cap = block.shape[:2]
-        b, c = pos.shape
-        m = s_blk.shape[2]
-        valid = pos >= 0
-        n_valid = int(valid.sum())
-        uniq = int(torch.unique(pos[valid]).numel())
-        neg = 1.0 - n_valid / max(b * c, 1)
-        deq = (block.float() * sc[:, None, :] if name == "int8"
-               else block).reshape(rows * cap, d)
-        tol = 1e-5 * ((hq * hq).sum(-1)[:, None] + (deq * deq).sum(-1).max())
-        del deq
-        e = compare_hop(torch, args, tol, f"B4 {name} main-path hop")
-        errs["graph_step"] = max(errs["graph_step"], e)
-        log(f"B4 {name} vs twin on hop {hop} of {n_hops} of the forced-"
-            f"graph read, block [{rows}, {cap}, {d}], b={b} c={c}: agree, "
-            f"max |err| {e:.3g}; "
-            f"{neg:.4f} of the lanes are -1, {uniq} distinct rows in "
-            f"{n_valid} gathers")
-        kw = {"scales": sc}
-        head = args[:7]
-        ms = cuda_ms(torch, lambda: beam_step_scores(*head, **kw), iters=10)
-        plain = cuda_ms(torch, lambda: beam_step_plain(*head, **kw),
-                        iters=3, warmup=1)
-        flat_x = block.reshape(rows * cap, d)
-        flat_s = s_blk.reshape(rows * cap, m)
-        pl = pos.long().clamp_min(0)
-        lo = hp[0, :m]
-        hi = hp[1, :m]
-
-        def b4_library():
-            cx = flat_x[pl]
-            if name == "int8":
-                cx = cx.float() * sc[pl // cap]
-            ip = torch.bmm(cx, hq[:, :, None])[:, :, 0]
-            dm = (cx * cx).sum(-1) - 2.0 * ip + (hq * hq).sum(-1)[:, None]
-            cm = flat_s[pl]
-            ok = ((cm >= lo) & (cm <= hi)).all(-1) & valid
-            return dm.masked_fill(~valid, float("inf")), ok
-        lib = cuda_ms(torch, b4_library, iters=3, warmup=1)
-        row_b = d * (1 if name == "int8" else 4) + 4 * m
-        nbytes = uniq * row_b + 4.0 * b * c + 4.0 * b * d + 8.0 * b * c
-        if name == "int8":
-            nbytes += 4.0 * rows * d
-        flops = 4.0 * n_valid * d
-        gathered = n_valid * row_b
-        log(f"B4 {name}: {uniq} distinct rows of {rows * cap} gathered "
-            f"{n_valid} times ({gathered / 1e9:.3f} GB if every gather "
-            f"came from HBM, {gathered / PEAK_BYTES * 1e3:.3f} ms)")
+        res = {lanes: measure_hop(torch, hargs, name,
+                                  f"{lanes} lanes of hop {hop} of {n_hops}",
+                                  errs)
+               for lanes, hargs in (("traversal", args),
+                                    ("raw", args[:1] + (raw,) + args[2:]))}
         out[f"graph_step_{name}"] = dict(
-            ms=ms, plain_ms=plain, library_ms=lib,
-            bound_ms=max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
-            bound_by="operations" if flops / PEAK_FP32_FLOPS
-            >= nbytes / PEAK_BYTES else "bytes",
-            neg_share=neg, distinct_rows=uniq,
-            shape=f"hop {hop} of {n_hops} of a forced-graph read: "
-                  f"q[{b},{d}] pos[{b},{c}] "
-                  f"({neg:.4f} of lanes -1, {uniq} distinct rows) "
-                  f"block[{rows},{cap},{d}] {name} {hkind}")
+            res["traversal"], raw=res["raw"], fresh_share=fresh,
+            read_hops=n_read, read_ms=read_ms,
+            ms_per_hop=read_ms / max(n_read, 1))
     return out
+
+
+def measure_hop(torch, args, name: str, what: str, errs: dict) -> dict:
+    """B4 on one recorded hop's ``args`` (q, pos, block, meta, params,
+    kind, metric, scales) of the ``name`` (fp32 / int8) manager: held
+    against its twin, then timed beside the twin, a library call on the
+    same lanes, its bound (each distinct row read once) and the time its
+    gathers would take if each came from HBM."""
+    from repro_torch.kernels.graph_topk import (beam_step_plain,
+                                                beam_step_scores)
+    hq, pos, block, s_blk, hp, hkind, metric, sc = args
+    rows, cap, d = block.shape
+    b, c = pos.shape
+    m = s_blk.shape[2]
+    valid = pos >= 0
+    n_valid = int(valid.sum())
+    uniq = int(torch.unique(pos[valid]).numel())
+    neg = 1.0 - n_valid / max(b * c, 1)
+    deq = (block.float() * sc[:, None, :] if name == "int8"
+           else block).reshape(rows * cap, d)
+    tol = 1e-5 * ((hq * hq).sum(-1)[:, None] + (deq * deq).sum(-1).max())
+    del deq
+    e = compare_hop(torch, args, tol, f"B4 {name} {what}")
+    errs["graph_step"] = max(errs["graph_step"], e)
+    log(f"B4 {name} vs twin on the {what} of the forced-graph read, block "
+        f"[{rows}, {cap}, {d}], b={b} c={c}: agree, max |err| {e:.3g}; "
+        f"{neg:.4f} of the lanes are -1, {uniq} distinct rows in "
+        f"{n_valid} gathers")
+    kw = {"scales": sc}
+    head = args[:7]
+    ms = cuda_ms(torch, lambda: beam_step_scores(*head, **kw), iters=10)
+    plain = cuda_ms(torch, lambda: beam_step_plain(*head, **kw), iters=3,
+                    warmup=1)
+    flat_x = block.reshape(rows * cap, d)
+    flat_s = s_blk.reshape(rows * cap, m)
+    pl = pos.long().clamp_min(0)
+    lo = hp[0, :m]
+    hi = hp[1, :m]
+
+    def b4_library():
+        cx = flat_x[pl]
+        if name == "int8":
+            cx = cx.float() * sc[pl // cap]
+        ip = torch.bmm(cx, hq[:, :, None])[:, :, 0]
+        dm = (cx * cx).sum(-1) - 2.0 * ip + (hq * hq).sum(-1)[:, None]
+        cm = flat_s[pl]
+        ok = ((cm >= lo) & (cm <= hi)).all(-1) & valid
+        return dm.masked_fill(~valid, float("inf")), ok
+    lib = cuda_ms(torch, b4_library, iters=3, warmup=1)
+    row_b = d * (1 if name == "int8" else 4) + 4 * m
+    nbytes = uniq * row_b + 4.0 * b * c + 4.0 * b * d + 8.0 * b * c
+    if name == "int8":
+        nbytes += 4.0 * rows * d
+    flops = 4.0 * n_valid * d
+    gathered = n_valid * row_b
+    no_reuse = gathered / PEAK_BYTES * 1e3
+    log(f"B4 {name} {what}: {uniq} distinct rows of {rows * cap} gathered "
+        f"{n_valid} times ({gathered / 1e9:.3f} GB if every gather came "
+        f"from HBM, {no_reuse:.3f} ms)")
+    return dict(
+        ms=ms, plain_ms=plain, library_ms=lib,
+        bound_ms=max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+        bound_by="operations" if flops / PEAK_FP32_FLOPS
+        >= nbytes / PEAK_BYTES else "bytes",
+        no_reuse_ms=no_reuse, neg_share=neg, distinct_rows=uniq,
+        gathers=n_valid,
+        shape=f"{what} of a forced-graph read: q[{b},{d}] pos[{b},{c}] "
+              f"({neg:.4f} of lanes -1, {uniq} distinct rows) "
+              f"block[{rows},{cap},{d}] {name} {hkind}")
 
 
 def measure(torch, keep: dict, nq: int, d: int) -> dict:
@@ -1446,7 +1508,7 @@ def main() -> int:
             log(f"[{name}] " + ("\n[{name}] ".format(name=name).join(lines)
                                 if lines else "already built"))
             if name in ("filtered_topk", "distance", "quant_topk",
-                        "flash_decode"):
+                        "graph_step", "flash_decode"):
                 # the redesigned kernels must keep every register in the
                 # register file
                 spills = [int(v) for ln in lines for v in re.findall(
@@ -1486,12 +1548,16 @@ def main() -> int:
     with Phase("6 measure", torch):
         meas = measure(torch, keep, QUERIES, D)
         meas.update(measure_sharded(torch, keep, QUERIES, errs))
-        for name, mm in meas.items():
+        for name, mm in list(meas.items()) + [
+                (f"{key} raw lanes", meas[key]["raw"])
+                for key in ("graph_step_fp32", "graph_step_int8")]:
             extra = "".join(
                 f"; {what} {mm[key]:.3f} ms" for key, what in (
                     ("dense_ms", "every tile computed"),
                     ("dense_bound_ms", "dense bound"),
-                    ("gather_library_ms", "gather-first library"))
+                    ("gather_library_ms", "gather-first library"),
+                    ("no_reuse_ms", "every gather from HBM"),
+                    ("ms_per_hop", "host clock per hop of the read"))
                 if key in mm)
             log(f"{name} at {mm['shape']}: kernel {mm['ms']:.3f} ms, twin "
                 f"{mm['plain_ms']:.3f} ms, library {mm['library_ms']:.3f} "
@@ -1563,12 +1629,20 @@ def main() -> int:
                         "tile_share", "dense_ms"):
                 entry[key] = mm[key]
         if name == "graph_step":
-            for key in ("neg_share", "distinct_rows"):
+            # fp32 on the traversal's lanes at the top level; each block
+            # type carries the hop's raw lanes too
+            hop_keys = ("ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "no_reuse_ms", "neg_share",
+                        "distinct_rows", "gathers", "shape")
+            for key in ("no_reuse_ms", "neg_share", "distinct_rows",
+                        "gathers", "fresh_share", "read_hops", "read_ms",
+                        "ms_per_hop"):
                 entry[key] = mm[key]
-            entry["int8"] = {key: meas["graph_step_int8"][key] for key in
-                             ("ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms", "neg_share", "distinct_rows",
-                              "shape")}
+            entry["raw"] = {key: mm["raw"][key] for key in hop_keys}
+            m8 = meas["graph_step_int8"]
+            entry["int8"] = {key: m8[key] for key in hop_keys + (
+                "fresh_share", "read_hops", "read_ms", "ms_per_hop")}
+            entry["int8"]["raw"] = {key: m8["raw"][key] for key in hop_keys}
         kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi_line())

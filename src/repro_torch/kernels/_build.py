@@ -46,7 +46,7 @@ _SIGNATURES = {
         "repro_quant_topk": ([_P] * 9 + [_I] * 14 + [_L] * 4 + [_P], _I),
     },
     "graph_step": {
-        "repro_graph_step": ([_P] * 8 + [_I] * 10 + [_P], _I),
+        "repro_graph_step": ([_P] * 8 + [_I] * 13 + [_P], _I),
     },
     "flash_decode": {
         "repro_flash_decode": ([_P] * 8 + [_I] * 8 + [_P], _I),

@@ -8,11 +8,13 @@ traverses it with a batched best-first beam search whose hot step is
 :func:`beam_step_scores`:
 
   1. the host loop (one device sync per hop, like ``core/search.py``)
-     keeps fixed-shape beam / result / visited tensors and picks the top-W
-     frontier's neighbour positions;
-  2. the kernel (``csrc/graph_step.cu``) reads each candidate row straight
-     from the bucket block — dequantizing int8 codes on load — and emits
-     its raw distance (for routing) and predicate mask (for collection);
+     keeps fixed-shape beam / result / visited tensors, picks the top-W
+     frontier's neighbour positions and masks, before scoring, every lane
+     it would drop (a free slot, a visited position, a repeat in the row);
+  2. the kernel (``csrc/graph_step.cu``) compacts the lanes left, reads
+     each of their rows straight from the bucket block — dequantizing int8
+     codes on load — and emits its raw distance (for routing) and
+     predicate mask (for collection); a masked lane costs one store;
   3. beam and result merges are stable ``(distance, position)`` top-k over
      fixed shapes, so ties resolve to the lower position exactly as the
      reference's ``top_k`` does.
@@ -31,15 +33,25 @@ import numpy as np
 import torch
 
 from . import ref
+from ._hopper import MAX_SMEM
 from .filtered_topk import FILTER_KINDS
 
 __all__ = ["beam_step_scores", "beam_step_plain", "bucket_graph_topk",
-           "launch_count", "reset_launch_count"]
+           "launch_config", "launch_count", "reset_launch_count"]
 
 _KIND_CODE = {k: i for i, k in enumerate(FILTER_KINDS)}
 _MAX_M = 16
 INF = float("inf")
 _I32_MAX = int(np.iinfo(np.int32).max)
+
+# csrc/graph_step.cu's constants: threads per block, lanes compacted at
+# once, lanes per candidate, and the largest [rows, d] scale block staged
+# in shared memory (phase 5b's largest int8 bucket, [16, 768], takes 48 KB;
+# three blocks of 256 threads still share an SM)
+THREADS = 256
+CHUNK = 4 * THREADS
+GROUP = 8
+STAGE_MAX = 64 * 1024
 
 _LAUNCHES = [0]
 _LAUNCH_LOCK = threading.Lock()
@@ -109,6 +121,40 @@ def _check(q, pos, x, s, params, kind, metric, scales):
         raise ValueError(f"inputs on different devices: {devs}")
 
 
+def smem_bytes(d: int, quantized: bool, rows_staged: int) -> int:
+    """csrc/graph_step.cu's shared-memory layout (``layout``): staged
+    scales [rows_staged, dp] and the query row [dp] (dp = d rounded up to
+    whole pieces), its norm (16 bytes), the live list of a chunk (two ints
+    a lane), the position sort's 256 bins with 48 ints of warp sums,
+    starts and total, and two metadata rows of 16 floats per group."""
+    dp = -(-d // (16 if quantized else 4)) * (16 if quantized else 4)
+    return ((rows_staged + 1) * dp * 4 + 16 + CHUNK * 8 + (THREADS + 48) * 4
+            + (THREADS // GROUP) * 2 * _MAX_M * 4)
+
+
+def launch_config(b: int, d: int, rows: int, quantized: bool, x_ptr: int,
+                  sc_ptr: int) -> dict:
+    """The launch configuration of ``csrc/graph_step.cu``: one block per
+    query (``blocks``; a block compacts its c lanes ``CHUNK`` at a time,
+    so c does not enter), whether an int8 block's scales are staged in
+    shared memory (``stage``: up to ``STAGE_MAX`` bytes; larger ones are
+    read from global memory), the 16-byte row loads (``vec``: whole pieces
+    and 16-byte aligned rows, and scales for an unstaged int8 block; else
+    element loads in the same order), the dynamic shared memory and the
+    threads."""
+    w = 16 if quantized else 4
+    dp = -(-d // w) * w
+    stage = quantized and rows * dp * 4 <= STAGE_MAX
+    smem = smem_bytes(d, quantized, rows if stage else 0)
+    if smem > MAX_SMEM:
+        raise ValueError(f"graph_step: a query row of d={d} does not fit "
+                         "one block's shared memory")
+    vec = int(d % w == 0 and x_ptr % 16 == 0
+              and (not quantized or stage or sc_ptr % 16 == 0))
+    return dict(blocks=b, stage=int(stage), vec=vec, smem=smem,
+                threads=THREADS)
+
+
 def beam_step_scores(q, pos, x, s, params, kind: str, metric: str = "l2",
                      scales=None):
     """Score one traversal hop with the gather fused in: ``q [b, d]``
@@ -140,8 +186,7 @@ def beam_step_scores(q, pos, x, s, params, kind: str, metric: str = "l2",
     pos = pos.to(torch.int32).contiguous()
     quantized = x.dtype == torch.int8
     sc = scales.contiguous() if quantized else s
-    vec = int(d % 4 == 0 and all(t.data_ptr() % 16 == 0
-                                 for t in (q, x, sc)))
+    cfg = launch_config(b, d, rows, quantized, x.data_ptr(), sc.data_ptr())
     from ._build import load
     lib = load("graph_step")
     with torch.cuda.device(dev):
@@ -149,8 +194,9 @@ def beam_step_scores(q, pos, x, s, params, kind: str, metric: str = "l2",
         err = lib.repro_graph_step(
             q.data_ptr(), pos.data_ptr(), x.data_ptr(), sc.data_ptr(),
             s.data_ptr(), params.data_ptr(), out_d.data_ptr(),
-            out_ok.data_ptr(), b, c, d, cap, m, mp, _KIND_CODE[kind],
-            0 if metric == "l2" else 1, int(quantized), vec, stream)
+            out_ok.data_ptr(), b, c, d, cap, rows, m, mp, _KIND_CODE[kind],
+            0 if metric == "l2" else 1, int(quantized), cfg["stage"],
+            cfg["vec"], cfg["smem"], stream)
     if err != 0:
         raise RuntimeError(f"graph_step CUDA launch failed: cudaError {err}")
     with _LAUNCH_LOCK:
@@ -199,16 +245,14 @@ def _traverse(q, gids, nbrs, score, seeds, k: int, ef: int, width: int,
     kc = max(k, ef)
     rows_b = torch.arange(b, device=dev)[:, None]
 
-    def gather_score(pos):
-        gid = gids[pos.clamp_min(0)]
-        d, ok = score(pos)
-        return gid, d, ok.bool()
-
+    # B4 is handed only the lanes the traversal keeps (the rest are -1,
+    # which read no row and score +inf / 0), so the masks come first
     seed_b = seeds[None, :].expand(b, -1)
-    gid0, d0, ok0 = gather_score(seed_b)
-    valid0 = (seed_b >= 0) & (gid0 >= 0) & _unique_mask(seed_b)
-    droute0 = torch.where(valid0, d0, INF)
-    dres0 = torch.where(valid0 & ok0, d0, INF)
+    valid0 = ((seed_b >= 0) & (gids[seed_b.clamp_min(0)] >= 0)
+              & _unique_mask(seed_b))
+    live0 = torch.where(valid0, seed_b, -1)
+    droute0, ok0 = score(live0)
+    dres0 = torch.where(ok0.bool(), droute0, INF)
 
     visited = torch.zeros((b, npos), dtype=torch.bool, device=dev)
     visited[:, seeds[seeds >= 0]] = True
@@ -217,7 +261,7 @@ def _traverse(q, gids, nbrs, score, seeds, k: int, ef: int, width: int,
     inf = torch.full((b, 1), INF, device=dev)
     beam_pos, beam_d = _merge_topk(
         neg.expand(b, ef), inf.expand(b, ef),
-        torch.where(valid0, seed_b, -1), droute0, ef)
+        live0, droute0, ef)
     beam_exp = torch.zeros((b, ef), dtype=torch.bool, device=dev)
     res_pos, res_d = _merge_topk(
         neg.expand(b, kc), inf.expand(b, kc),
@@ -238,16 +282,16 @@ def _traverse(q, gids, nbrs, score, seeds, k: int, ef: int, width: int,
         nb = torch.where(exp_pos[:, :, None] >= 0, nb, -1)
         cand = nb.reshape(b, -1)
 
-        gid, d, ok = gather_score(cand)
         safe = cand.clamp_min(0)
-        fresh = (cand >= 0) & (gid >= 0)
+        fresh = (cand >= 0) & (gids[safe] >= 0)
         fresh &= ~torch.gather(visited, 1, safe)
         fresh &= _unique_mask(cand)
-        droute = torch.where(fresh, d, INF)
-        dres = torch.where(fresh & ok, d, INF)
+        live = torch.where(fresh, cand, -1)
+        droute, ok = score(live)
+        dres = torch.where(ok.bool(), droute, INF)
         visited[rows_b.expand_as(cand)[fresh], cand[fresh]] = True
 
-        ids2 = torch.cat([beam_pos, torch.where(fresh, cand, -1)], dim=1)
+        ids2 = torch.cat([beam_pos, live], dim=1)
         dd2 = torch.cat([beam_d, droute], dim=1)
         ee2 = torch.cat([beam_exp, torch.zeros_like(fresh)], dim=1)
         beam_d, sel2 = _smallest(dd2, ef)

@@ -312,21 +312,30 @@ def test_filtered_topk_kernel_skips_failing_tiles(card, kpad, d):
         _assert_topk_close(kd, ki, td, ti, _tol(q, x)[None])
 
 
-@pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("metric", ["l2", "ip"])
-@pytest.mark.parametrize("kind", list(_FILTERS))
-def test_graph_step_kernel_matches_twin(card, kind, metric, quantized):
+def _sparse_lanes(pos, seed):
+    """About 80% of ``pos`` set to -1 the way a traversal's fresh mask
+    leaves it: whole query rows (so whole blocks of tq queries), a run of
+    64 lanes in every row (whole warps of the compaction) and scattered
+    lanes elsewhere."""
+    gen = torch.Generator(device=pos.device)
+    gen.manual_seed(seed)
+    keep = torch.rand(pos.shape, generator=gen, device=pos.device) < 0.4
+    keep[:10] = False
+    keep[:, 32:96] = False
+    return torch.where(keep, pos, -1)
+
+
+def _check_hop(q, pos, block, ss, params, kind, metric, sc, deq, lanes):
+    """B4 vs its twin on one hop: equal masks, +inf at -1 lanes, distances
+    within the fp32 tolerance.  On sparse lanes the kernel must also give
+    the live lanes bit for bit what it gives them among dense lanes (the
+    order of a sum depends only on d)."""
     from repro_torch.kernels.graph_topk import (beam_step_plain,
                                                 beam_step_scores)
-    q, codes, ss, xsq, scales, deq = _quant_stack(card)
-    g, cap, d = codes.shape
-    gen = torch.Generator(device=card)
-    gen.manual_seed(3)
-    pos = torch.randint(-1, g * cap, (q.shape[0], 300), generator=gen,
-                        device=card, dtype=torch.int32)
-    block, sc = (codes, scales) if quantized else (deq, None)
-    params = torch.as_tensor(ops.encode_filter(_FILTERS[kind], 3,
-                                               mpad=3)[1], device=card)
+    dense = pos
+    if lanes == "sparse":
+        pos = _sparse_lanes(pos, pos.shape[1])
+        assert 0.7 < float((pos < 0).float().mean()) < 0.92
     kd, kok = beam_step_scores(q, pos, block, ss, params, kind, metric,
                                scales=sc)
     torch.cuda.synchronize()
@@ -335,44 +344,72 @@ def test_graph_step_kernel_matches_twin(card, kind, metric, quantized):
     valid = pos >= 0
     assert torch.equal(kok, tok)
     assert bool(torch.isinf(kd[~valid]).all())
-    tol = _tol(q, deq.reshape(-1, d))
+    tol = _tol(q, deq.reshape(-1, block.shape[-1]))
     assert bool((torch.where(valid, (kd - td).abs(), 0) <= tol).all())
+    if lanes == "sparse":
+        fd, fok = beam_step_scores(q, dense, block, ss, params, kind,
+                                   metric, scales=sc)
+        assert torch.equal(kd[valid], fd[valid])
+        assert torch.equal(kok[valid], fok[valid])
 
 
+@pytest.mark.parametrize("lanes", ["all", "sparse"])
 @pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("d", [3, 30, 130])
-def test_graph_step_kernel_matches_twin_unaligned_width(card, d, quantized):
-    """Widths with d % 4 != 0 take B4's element loads and a short tail
-    piece; they must score like the twin too."""
-    from repro_torch.kernels.graph_topk import (beam_step_plain,
-                                                beam_step_scores)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("kind", list(_FILTERS))
+def test_graph_step_kernel_matches_twin(card, kind, metric, quantized,
+                                        lanes):
+    """c = 1100 lanes: more than one chunk of 1024 a block compacts at
+    once, and not a multiple of a warp."""
+    q, codes, ss, xsq, scales, deq = _quant_stack(card)
+    g, cap, d = codes.shape
+    gen = torch.Generator(device=card)
+    gen.manual_seed(3)
+    pos = torch.randint(-1, g * cap, (q.shape[0], 1100), generator=gen,
+                        device=card, dtype=torch.int32)
+    block, sc = (codes, scales) if quantized else (deq, None)
+    params = torch.as_tensor(ops.encode_filter(_FILTERS[kind], 3,
+                                               mpad=3)[1], device=card)
+    _check_hop(q, pos, block, ss, params, kind, metric, sc, deq, lanes)
+
+
+@pytest.mark.parametrize("lanes", ["all", "sparse"])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("d,g", [(3, 2), (30, 2), (130, 2), (768, 24)])
+def test_graph_step_kernel_matches_twin_unaligned_width(card, d, g,
+                                                        quantized, lanes):
+    """Widths with d % 4 != 0 (d % 16 != 0 for int8) take B4's element
+    loads and a short tail piece; d = 768 over 24 rows has int8 scales
+    (72 KB) too large for the shared-memory stage, so they are read from
+    global memory.  All must score like the twin."""
+    from repro_torch.kernels.graph_topk import launch_config
     from repro_torch.quant import dequantize, encode_segment
-    g, cap, m = 2, 700, 3
+    cap, m = (700 if g == 2 else 64), 3
     x, s = make_dataset_device(g * cap, d, m, seed=d, device=card)
     q = x[:17] + 0.05
-    sq = encode_segment(x.cpu().numpy())
-    codes = torch.as_tensor(sq.codes, device=card).reshape(g, cap, d)
-    scales = torch.as_tensor(sq.scales, device=card)[None].expand(g, d)
-    deq = torch.as_tensor(dequantize(sq.codes, sq.scales),
-                          device=card).reshape(g, cap, d)
+    codes = torch.empty((g, cap, d), dtype=torch.int8, device=card)
+    scales = torch.empty((g, d), device=card)
+    deq = torch.empty((g, cap, d), device=card)
+    xr = x.reshape(g, cap, d)
+    for r in range(g):
+        sq = encode_segment(xr[r].cpu().numpy())
+        codes[r] = torch.as_tensor(sq.codes, device=card)
+        scales[r] = torch.as_tensor(sq.scales, device=card)
+        deq[r] = torch.as_tensor(dequantize(sq.codes, sq.scales),
+                                 device=card)
     gen = torch.Generator(device=card)
     gen.manual_seed(d)
     pos = torch.randint(-1, g * cap, (q.shape[0], 200), generator=gen,
                         device=card, dtype=torch.int32)
-    block, sc = (codes, scales.contiguous()) if quantized else (deq, None)
+    block, sc = (codes, scales) if quantized else (deq, None)
+    cfg = launch_config(17, d, g, quantized, block.data_ptr(),
+                        scales.data_ptr())
+    assert cfg["stage"] == int(quantized and g * d * 4 <= 64 * 1024)
+    assert cfg["vec"] == int(d % (16 if quantized else 4) == 0)
     ss = s.reshape(g, cap, m)
     params = torch.as_tensor(ops.encode_filter(_FILTERS["box"], 3,
                                                mpad=3)[1], device=card)
-    kd, kok = beam_step_scores(q, pos, block, ss, params, "box", "l2",
-                               scales=sc)
-    torch.cuda.synchronize()
-    td, tok = beam_step_plain(q, pos, block, ss, params, "box", "l2",
-                              scales=sc)
-    valid = pos >= 0
-    assert torch.equal(kok, tok)
-    assert bool(torch.isinf(kd[~valid]).all())
-    tol = _tol(q, deq.reshape(-1, d))
-    assert bool((torch.where(valid, (kd - td).abs(), 0) <= tol).all())
+    _check_hop(q, pos, block, ss, params, "box", "l2", sc, deq, lanes)
 
 
 @pytest.mark.parametrize("quantize", [None, "int8"])

@@ -132,9 +132,43 @@ def _graph_sources(seed, n_segments=3, d=24, m=3, deg=8, quantize=False):
     return j, t
 
 
+class _LaneSpy:
+    """Wraps the port's ``beam_step_scores`` (the score callback of
+    ``_traverse``) and checks every lane it is handed: a live lane (>= 0)
+    holds a point (gid >= 0), appears once in its row, and was not
+    visited: after the seed scoring every seed is visited, and after each
+    hop every lane it was handed."""
+
+    def __init__(self, monkeypatch, gids, seeds):
+        self.gids = gids.reshape(-1)
+        self.seeds = {int(p) for p in seeds if p >= 0}
+        self.visited = None
+        self.calls = 0
+        real = tg.beam_step_scores
+
+        def spy(q, pos, *args, **kw):
+            self.check(pos)
+            return real(q, pos, *args, **kw)
+        monkeypatch.setattr(tg, "beam_step_scores", spy)
+
+    def check(self, pos):
+        live = pos >= 0
+        assert bool((self.gids[pos[live].long()] >= 0).all())
+        rows = [pos[r][live[r]].tolist() for r in range(pos.shape[0])]
+        for r, row in enumerate(rows):
+            assert len(set(row)) == len(row)
+            assert self.visited is None or not set(row) & self.visited[r]
+        if self.visited is None:
+            self.visited = [set(self.seeds) for _ in rows]
+        for r, row in enumerate(rows):
+            self.visited[r] |= set(row)
+        self.calls += 1
+
+
 @pytest.mark.parametrize("quantize", [None, "int8"])
 @pytest.mark.parametrize("name", ["none", "box", "box_ball"])
-def test_bucket_graph_topk_matches_reference(name, quantize):
+def test_bucket_graph_topk_matches_reference(name, quantize, monkeypatch):
+    """Also: B4 is handed only the lanes the traversal keeps."""
     jsrc, tsrc = _graph_sources(5, quantize=quantize is not None)
     jpk = jss.build_bucketed_pack(jsrc, n_shards=2, quantize=quantize,
                                   graph_degree=8)
@@ -153,10 +187,14 @@ def test_bucket_graph_topk_matches_reference(name, quantize):
         out_j = jg.bucket_graph_topk(q, jb, seeds, filt, 10, m=3, ef=32,
                                      width=4, max_iters=64,
                                      use_pallas=False)
-        out_t = tg.bucket_graph_topk(q, tb, seeds, port_filter(filt), 10,
-                                     m=3, ef=32, width=4, max_iters=64)
+        with monkeypatch.context() as mp:
+            spy = _LaneSpy(mp, tb.gids, seeds)
+            out_t = tg.bucket_graph_topk(q, tb, seeds, port_filter(filt),
+                                         10, m=3, ef=32, width=4,
+                                         max_iters=64)
         g_j, d_j, hops_j = out_j
         g_t, d_t, hops_t = out_t
+        assert spy.calls == hops_t + 1
         assert g_t.dtype == np.int64 and d_t.dtype == np.float32
         assert_topk_parity(g_t, d_t, g_j, d_j, dist_tol(q, x_all))
         assert hops_t == hops_j
@@ -217,7 +255,8 @@ def test_manager_graph_read_path_parity_and_recall(seed, n_shards,
     """The reference's planner property on the port, beside the
     reference: scan-biased auto equals forced scan bit for bit; graph-
     biased auto and forced graph keep recall@10 >= 0.95 and track the
-    reference's answers; both make the same per-bucket decisions."""
+    reference's answers; both make the same per-bucket decisions and
+    traverse with the same hop counts."""
     rng = np.random.default_rng(seed)
     n, d = 1500, 24
     x = rng.normal(size=(n, d)).astype(np.float32)
@@ -257,10 +296,18 @@ def test_manager_graph_read_path_parity_and_recall(seed, n_shards,
             **GRAPH_BIASED))
         gt, _ = tw_ground_truth(x_all, s_all, q, f, valid)
         for rp in (None, "graph"):
+            hops = [m.obs.registry.histogram("graph_hops").snapshot()
+                    for m in (tm, jm)]
             g_t, d_t = tm.query(q, f, k=10, read_path=rp)
             g_j, d_j = jm.query(q, filt, k=10, read_path=rp)
             assert {c: p.mode for c, p in tm.last_plan.items()} == \
                 {c: p.mode for c, p in jm.last_plan.items()}
+            # the same traversals: as many buckets and hops in each
+            now = [m.obs.registry.histogram("graph_hops").snapshot()
+                   for m in (tm, jm)]
+            delta = [(a["count"] - b["count"], a["sum"] - b["sum"])
+                     for a, b in zip(now, hops)]
+            assert delta[0] == delta[1] and delta[0][0] > 0
             assert any(p.mode == "graph" for p in tm.last_plan.values())
             r_t = jw.recall(g_t, gt)
             assert r_t >= 0.95, (rp, r_t)

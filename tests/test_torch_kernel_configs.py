@@ -1,9 +1,10 @@
-"""Launch configurations of kernels B1, B2, B3 and B5, the tile-skip
-counts, and the premise of the tile skip, checked on the CPU.
+"""Launch configurations of kernels B1–B5, the tile-skip counts, and the
+premise of the tile skip, checked on the CPU.
 
 - Every configuration the wrappers (``kernels/filtered_topk.py``,
-  ``kernels/distance.py``, ``kernels/quant_topk.py`` and
-  ``kernels/flash_decode.py``, each ``launch_config``) can pick fits one
+  ``kernels/distance.py``, ``kernels/quant_topk.py``,
+  ``kernels/graph_topk.py`` and ``kernels/flash_decode.py``, each
+  ``launch_config``) can pick fits one
   H100 block (232,448 bytes of dynamic shared memory), the blocks per SM
   it counts on fit the SM's 233,472 bytes with 1,024 reserved per block,
   and each copy width divides both the base pointer and the row stride.
@@ -11,8 +12,9 @@ counts, and the premise of the tile skip, checked on the CPU.
   tiles of 128 each, and B5's grid is what one card holds at once.  No
   configuration depends on the metadata width (m <= 16, mp >= m): the
   kernels read the packed filter parameters from global memory.  The
-  expected layouts of ``csrc/topk_pass1.cuh`` (B1, B3) and
-  ``csrc/flash_decode.cu`` (B5) are written out here a second time, from
+  expected layouts of ``csrc/topk_pass1.cuh`` (B1, B3),
+  ``csrc/graph_step.cu`` (B4) and ``csrc/flash_decode.cu`` (B5) are
+  written out here a second time, from
   the C sources' constants; the C launchers refuse any other size at run
   time.
 - ``live_tiles`` (passing candidates, tiles with one, tiles) equals a
@@ -51,6 +53,7 @@ from repro_torch.kernels.ref import filter_mask_ref
 # the package re-exports functions under these modules' names
 tft = importlib.import_module("repro_torch.kernels.filtered_topk")
 tfd = importlib.import_module("repro_torch.kernels.flash_decode")
+tg = importlib.import_module("repro_torch.kernels.graph_topk")
 torch.set_num_threads(1)
 
 MAX_SMEM = 232_448        # dynamic shared memory one block may ask for
@@ -201,6 +204,42 @@ def test_flash_decode_launch_configs_fit(dtype, hd):
         # 16-byte copies: rows are whole pieces, and the wrapper refuses
         # base pointers off 16-byte alignment
         assert cfg["vec"] == 16 and hd * size % 16 == 0
+
+
+def _b4_smem(dp, rows_staged):
+    """csrc/graph_step.cu's layout, from its constants: staged scales
+    [rows_staged, dp] and the query row [dp] in fp32, its norm (16 bytes),
+    the live list of a chunk of 1024 lanes (two ints each), the position
+    sort's 256 bins and 48 ints of warp sums, starts and total, and two
+    metadata rows of 16 floats for each of the 32 groups of 8 lanes of a
+    256-thread block."""
+    return (rows_staged + 1) * dp * 4 + 16 + 1024 * 8 + 1216 + 32 * 128
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_graph_step_launch_configs_fit(quantized):
+    """B4: one block per query, whatever c (a block compacts its lanes
+    1024 at a time); a row is cut into 16-byte pieces (4 fp32 or 16 int8
+    values); int8 scales are staged up to 64 KB and read from global
+    memory above that."""
+    w = 16 if quantized else 4
+    for b, d, rows, xoff in itertools.product(
+            (1, 7, 1000), (3, 96, 130, 768, 4096), (1, 16, 24, 200),
+            (0, 4, 16)):
+        xp, sp = 1 << 22 | xoff, 1 << 21
+        cfg = tg.launch_config(b, d, rows, quantized, xp, sp)
+        dp = -(-d // w) * w
+        assert cfg["threads"] == 256 and cfg["blocks"] == b
+        staged = quantized and rows * dp * 4 <= 64 * 1024
+        assert cfg["stage"] == int(staged)
+        assert cfg["smem"] == _b4_smem(dp, rows if staged else 0) <= MAX_SMEM
+        assert cfg["vec"] == int(d % w == 0 and xoff % 16 == 0)
+    # phase 5b's forced-graph hop: d = 768 over a [16, 8192] bucket, three
+    # blocks to an SM with the int8 scales staged
+    f32 = tg.launch_config(1000, 768, 16, False, 1 << 22, 1 << 21)
+    i8 = tg.launch_config(1000, 768, 16, True, 1 << 22, 1 << 21)
+    assert (f32["stage"], f32["vec"], i8["stage"], i8["vec"]) == (0, 1, 1, 1)
+    assert 3 * (i8["smem"] + RESERVED) <= SM_BYTES
 
 
 _LIVE_FILTERS = {
