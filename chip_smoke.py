@@ -10,11 +10,15 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` (one
 PyTorch twin, then drives the port's main paths at deployment widths
 (d = 768) — the exact filtered scan over 1M vectors, a CubeGraph index
 built and queried on the card, the default streaming ``SegmentManager``,
-and the sharded sealed read path (``n_shards=2``, fp32 and int8 packs,
-forced scan, forced graph and planner-chosen reads) — and checks the
-answers against exact ground truth.  It times each of those kernels
-beside its twin, its roofline bound and one PyTorch library call
-computing the same function.  Then it frees those phases' tensors and
+the paper's baselines (PostFiltering, PreFiltering, ACORN-4, TreeGraph)
+beside the index, and the sharded sealed read path (``n_shards=2``, fp32
+and int8 packs, forced scan, forced graph and planner-chosen reads) — and
+checks the answers against exact ground truth.  The sharded managers are
+then snapshotted, restored on the card and held bit for bit to their
+answers, and restored again under a device budget that leaves buckets
+in pinned host memory (cold dispatches, admissions on a side stream).
+It times each of those kernels beside its twin, its roofline bound and
+one PyTorch library call computing the same function.  Then it frees those phases' tensors and
 drives the generation side at the full width of ``internvl2-2b`` in bf16
 (random weights drawn on the card from ``SEED``): a ``ContinuousBatcher``
 run, decode checked against a full forward, and ``RAGPipeline.answer``
@@ -56,6 +60,13 @@ N_INDEX = 100_000       # cut from 1M: level-0 kNN is O(n^2 / 2^m * d)
 N_STREAM = 100_000
 N_SHARDED = 100_000     # points per manager in the sharded streaming phase
 EARLY_QUERY_BATCH = 2   # the sharded managers' first query, after 3 batches
+# Baselines (4b) on phase 4's data, queried at BASELINE_EF; not cut while
+# the four builds stay under BASELINE_BUILD_S.  The monolithic graph counts
+# as navigable when its unfiltered recall@10 reaches NAV_RECALL at NAV_EF
+# and the approximate-leg floor of 0.8 at BASELINE_EF (PERF.md §6).
+BASELINE_BUILD_S = 180.0
+BASELINE_EF = 64
+NAV_EF, NAV_RECALL = 256, 0.95
 SEED = 0
 
 # Generation phase (7): the full width of ARCH, never cut.  N_RAG is cut
@@ -454,9 +465,11 @@ def main_scan(torch, dev, n: int, d: int, nq: int, seed: int, errs: dict,
     keep.update(x=x, s=s, q=q, box=filters["box"], npd=npd)
 
 
-def main_index(torch, dev, n: int, d: int, nq: int, seed: int) -> None:
+def main_index(torch, dev, n: int, d: int, nq: int, seed: int,
+               keep: dict) -> None:
     """CubeGraph index built on the card and queried with both planners;
-    ground truth from the exact scan."""
+    ground truth from the exact scan.  Keeps the data, queries and index
+    for phase 4b."""
     from repro_torch.core import CubeGraphConfig, CubeGraphIndex
     from repro_torch.core.workloads import (make_ball_filter,
                                             make_box_filter,
@@ -498,6 +511,122 @@ def main_index(torch, dev, n: int, d: int, nq: int, seed: int) -> None:
             check(int((gt >= 0).sum()) > 0, f"index {name}: empty truth")
             check(r >= 0.8, f"index {name} ratio={ratio}: recall {r:.4f} "
                   "< 0.8")
+    keep["index4"] = (x, s, q, index)
+
+
+def main_baselines(torch, dev, nq: int, seed: int, keep: dict) -> dict:
+    """The paper's baselines beside phase 4's CubeGraph index, on its data
+    and queries: PostFiltering, PreFiltering,
+    ACORN-4 and TreeGraph (leaves of 512) are built on the card and
+    queried at ef 64 with box filters at ratios 0.01 and 0.1.  Fails only
+    on a miswire: an unnavigable monolithic graph (PostFiltering's
+    unfiltered recall@10 below 0.8 at ef 64 or below 0.95 at ``NAV_EF``)
+    or CubeGraph not above PostFiltering at the same ef.  Returns the
+    launches of B1 and B2 in this phase."""
+    import numpy as np
+    from repro_torch.core import (AcornIndex, BoxFilter, PostFilteringIndex,
+                                  PreFilteringIndex, TreeGraphIndex)
+    from repro_torch.core.workloads import make_box_filter, recall
+    from repro_torch.kernels import ops
+    mods = {name: importlib.import_module(f"repro_torch.kernels.{mod}")
+            for name, mod in (("filtered_topk", "filtered_topk"),
+                              ("pairwise_dist", "distance"))}
+    for mod in mods.values():
+        mod.reset_launch_count()
+    m, k, ef = 3, 10, BASELINE_EF
+    x, s, q, index = keep.pop("index4")
+    n = x.shape[0]
+    s_np = s.cpu().numpy().astype("float64")
+    q_np = q.cpu().numpy()
+    builds = {}
+    for name, cls, kw in (("PostFiltering", PostFilteringIndex, {}),
+                          ("PreFiltering", PreFilteringIndex, {}),
+                          ("ACORN-4", AcornIndex, {"gamma": 4}),
+                          ("TreeGraph", TreeGraphIndex, {"leaf_size": 512})):
+        torch.cuda.synchronize()
+        idx = cls(x, s_np, device=dev, **kw)
+        torch.cuda.synchronize()
+        builds[name] = idx
+        log(f"baseline {name}: built in {idx.build_seconds:.2f} s, index "
+            f"{idx.index_bytes()} bytes")
+    total = sum(idx.build_seconds for idx in builds.values())
+    log(f"baselines: four builds {total:.1f} s at n={n} (limit "
+        f"{BASELINE_BUILD_S:.0f} s); CubeGraph index "
+        f"{index.index_bytes()} bytes")
+    f_all = BoxFilter(lo=np.full(m, -1.0, np.float32),
+                      hi=np.full(m, 2.0, np.float32))
+    gt_all = ops.exact_filtered_search(q, x, s, f_all, k)[0].cpu().numpy()
+    r_all = {}
+    for e in (ef, 128, NAV_EF):
+        ids, _ = builds["PostFiltering"].query(q_np, f_all, k=k, ef=e)
+        r_all[e] = recall(ids, gt_all)
+    log("baseline PostFiltering unfiltered: recall@10 " + ", ".join(
+        f"{r:.4f} at ef {e}" for e, r in r_all.items()))
+    check(r_all[ef] >= 0.8 and r_all[NAV_EF] >= NAV_RECALL,
+          f"PostFiltering unfiltered recall {r_all}: the monolithic graph "
+          "is not navigable")
+    for ratio in (0.01, 0.1):
+        f = make_box_filter(m, ratio, seed=seed)
+        gt = ops.exact_filtered_search(q, x, s, f, k)[0].cpu().numpy()
+        check(int((gt >= 0).sum()) > 0, f"baselines {ratio}: empty truth")
+        rec = {}
+        for name, idx in [("CubeGraph", index)] + list(builds.items()):
+            extra = ""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "TreeGraph":
+                ids, dd, nsub = idx.query(q_np, f, k=k, ef=ef,
+                                          return_n_subqueries=True)
+                extra = f", {nsub} subqueries"
+            else:
+                ids, dd = idx.query(q_np, f, k=k, ef=ef)[:2]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            check(ids.shape == (nq, k) and dd.shape == (nq, k),
+                  f"baseline {name}: shape {ids.shape}")
+            rec[name] = recall(ids, gt)
+            log(f"baseline {name} ratio={ratio}: recall@10 {rec[name]:.4f},"
+                f" {nq / dt:.0f} QPS (host clock){extra}")
+        check(rec["CubeGraph"] > rec["PostFiltering"],
+              f"ratio {ratio}: CubeGraph recall {rec['CubeGraph']:.4f} not "
+              f"above PostFiltering's {rec['PostFiltering']:.4f} at ef {ef}")
+    launches = {kn: mod.launch_count() for kn, mod in mods.items()}
+    keep["b2_knn"] = measure_knn_tile(torch, x, keep)
+    return launches
+
+
+def measure_knn_tile(torch, x, keep: dict, rows: int = 2048) -> dict:
+    """B2 at the shape the monolithic builds launch it 7,203 times: one
+    point chunk against one column chunk (``[rows, d] x [rows, d]``),
+    held against its twin and timed beside its bound and the library's
+    product."""
+    from repro_torch.kernels.distance import (pairwise_dist_call,
+                                              pairwise_dist_plain)
+    qv, xc = x[:rows], x[rows:2 * rows]
+    d = x.shape[1]
+    got = pairwise_dist_call(qv, xc)
+    want = pairwise_dist_plain(qv, xc)
+    err = float((got - want).abs().max())
+    tol = 1e-5 * float((qv * qv).sum(1).max() + (xc * xc).sum(1).max())
+    check(err <= tol, f"B2 vs twin on the kNN tile: {err} > {tol}")
+    keep["b2_knn_err"] = err
+    ms = cuda_ms(torch, lambda: pairwise_dist_call(qv, xc), iters=20)
+    plain = cuda_ms(torch, lambda: pairwise_dist_plain(qv, xc), iters=5)
+    lib = cuda_ms(torch, lambda: (qv * qv).sum(1)[:, None]
+                  - 2.0 * torch.matmul(qv, xc.T)
+                  + (xc * xc).sum(1)[None, :], iters=5)
+    flops = 2.0 * rows * rows * d
+    nbytes = 4.0 * (2 * rows * d + rows * rows)
+    bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    out = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+               bound_by="operations" if flops / PEAK_FP32_FLOPS
+               >= nbytes / PEAK_BYTES else "bytes",
+               max_abs_err=err, shape=f"q[{rows},{d}] x[{rows},{d}] fp32 l2")
+    log(f"B2 on the monolithic build's kNN tile {out['shape']}: agrees with "
+        f"the twin (max |err| {err:.3g}); kernel {ms:.4f} ms, twin "
+        f"{plain:.4f} ms, library {lib:.4f} ms, bound {bound:.4f} ms "
+        f"({out['bound_by']})")
+    return out
 
 
 class B1Tiles:
@@ -755,7 +884,7 @@ def main_sharded(torch, dev, n: int, d: int, nq: int, seed: int,
         f"{managers['fp32'].stats()['pack_buckets']}")
     log(f"sharded phase: B1 computed {tiles_5b[0]} of {tiles_5b[1]} "
         f"candidate tiles of 128 ({tiles_5b[0] / max(tiles_5b[1], 1):.4f})")
-    keep.update(managers=managers, q_sharded=q,
+    keep.update(managers=managers, q_sharded=q, sharded_filters=filters,
                 sharded_filter=filters["box_and_interval"],
                 b1_live_share_5b=tiles_5b[0] / max(tiles_5b[1], 1))
     return launches
@@ -1092,6 +1221,186 @@ def measure(torch, keep: dict, nq: int, d: int) -> dict:
 # ---------------------------------------------------------------------------
 # Kernel B5 (decode attention) and the generation side
 # ---------------------------------------------------------------------------
+def _dir_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(dp, f))
+               for dp, _, files in os.walk(root) for f in files)
+
+
+def _locked_pack(mgr):
+    with mgr._lock:
+        return mgr._pack, mgr._pack.view(), mgr._pack.nbytes
+
+
+def main_durability(torch, dev, keep: dict, nq: int) -> dict:
+    """Snapshots, restores and tiering on phase 5b's two managers (fp32 and
+    int8): each is snapshotted into a temporary directory, restored on the
+    card, and queried with 5b's queries and filters under scan, graph and
+    auto — bit for bit the original's answers (the scans against its
+    delta-kept pack as well as a rebuilt one, the traversals against its
+    pack rebuilt from the same live segments, as a restore builds it).  It is then restored again
+    under a device budget of a third of its pack (the largest bucket stays
+    cold) and must answer the scans bit for bit as all-resident, with the
+    resident bytes within the budget after every query and tier misses
+    counted.  Then one cold dispatch is timed against the same bucket
+    resident, with its host-to-device copy, and one side-stream admission.
+    Returns the launches of B1 / B3 / B4 in the checked part (the timed
+    part after it is not counted)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.streaming import SegmentManager
+    mods = {name: importlib.import_module(f"repro_torch.kernels.{mod}")
+            for name, mod in (("filtered_topk", "filtered_topk"),
+                              ("quant_topk", "quant_topk"),
+                              ("graph_step", "graph_topk"))}
+    for mod in mods.values():
+        mod.reset_launch_count()
+    k = 10
+    q, filters = keep["q_sharded"], keep["sharded_filters"]
+    root = tempfile.mkdtemp(prefix="cubegraph-5c-")
+    timed = []
+    try:
+        for name, mgr in keep["managers"].items():
+            snap = os.path.join(root, name)
+            t0 = time.perf_counter()
+            man = mgr.snapshot_to(snap)
+            dt = time.perf_counter() - t0
+            nbytes = _dir_bytes(snap)
+            log(f"durability[{name}]: snapshot {dt:.2f} s, {nbytes} bytes "
+                f"written ({nbytes / dt / 1e9:.2f} GB/s), "
+                f"{len(man['segments'])} segment artifacts")
+            t0 = time.perf_counter()
+            rest = SegmentManager.restore(snap, device=dev, resume=False)
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rest.query(q, filters["interval"], k=k, read_path="scan")
+            torch.cuda.synchronize()
+            log(f"durability[{name}]: restore {t_restore:.2f} s, first "
+                f"query (the pack's cold build) "
+                f"{time.perf_counter() - t0:.2f} s")
+            for fname, f in filters.items():
+                ga, da = mgr.query(q, f, k=k, read_path="scan")
+                gb, db = rest.query(q, f, k=k, read_path="scan")
+                check(bool(np.array_equal(ga, gb))
+                      and bool(np.array_equal(da, db)),
+                      f"restored[{name}] {fname}/scan: answers differ from "
+                      "the original's delta-kept pack")
+            # the pack is derived state: a traversal follows the graph the
+            # pack staged, and a delta-kept pack keeps the edges of points
+            # deleted after their segment was packed, where a cold build
+            # (a restore's) has only the live rows' edges.  So the graph
+            # and auto legs hold the restored manager to the original
+            # with its pack rebuilt from the same live segments.
+            with mgr._lock:
+                mgr._pack = None
+            for fname, f in filters.items():
+                for rp in ("scan", "graph", "auto"):
+                    ga, da = mgr.query(q, f, k=k, read_path=rp)
+                    pa = ({c: p.mode for c, p in mgr.last_plan.items()}
+                          if rp != "scan" else None)
+                    gb, db = rest.query(q, f, k=k, read_path=rp)
+                    pb = ({c: p.mode for c, p in rest.last_plan.items()}
+                          if rp != "scan" else None)
+                    check(pa == pb, f"restored[{name}] {fname}/{rp}: plan "
+                          f"{pb} != the original's {pa}")
+                    check(bool(np.array_equal(ga, gb))
+                          and bool(np.array_equal(da, db)),
+                          f"restored[{name}] {fname}/{rp}: answers differ "
+                          "from the original's")
+            log(f"durability[{name}]: restored == original bit for bit on "
+                f"{len(filters)} filters x scan (delta-kept and rebuilt "
+                "pack) / graph / auto (rebuilt pack)")
+            pack, _, full = _locked_pack(rest)
+            largest = max(b.full_nbytes for b in pack.buckets.values())
+            budget = min(full // 3, largest - 1)   # the largest stays cold
+            tier = SegmentManager.restore(
+                snap, cfg=dataclasses.replace(
+                    rest.cfg, device_budget_bytes=budget),
+                device=dev, resume=False)
+            for fname, f in filters.items():
+                ga, da = rest.query(q, f, k=k, read_path="scan")
+                gb, db = tier.query(q, f, k=k, read_path="scan")
+                check(bool(np.array_equal(ga, gb))
+                      and bool(np.array_equal(da, db)),
+                      f"budget[{name}] {fname}: answers differ from "
+                      "all-resident")
+                if tier._prefetch_thread is not None:
+                    tier._prefetch_thread.join(timeout=120)
+                _, _, resident = _locked_pack(tier)
+                check(resident <= budget, f"budget[{name}] {fname}: "
+                      f"{resident} resident bytes > budget {budget}")
+            st = tier.stats()
+            misses = st["obs"]["metrics"]["counters"].get("tier_miss_total",
+                                                          0)
+            check(misses > 0, f"budget[{name}]: no tier miss counted")
+            log(f"durability[{name}]: budget {budget} of {full} pack bytes:"
+                f" scans == all-resident bit for bit; tier {st['tier']}, "
+                f"misses {misses}, buckets {st['pack_buckets']}")
+            timed.append((name, rest, tier))
+        launches = {kn: mod.launch_count() for kn, mod in mods.items()}
+        log(f"durability phase launches: {launches}")
+        for kn, c in launches.items():
+            check(c >= 1, f"kernel {kn} was not launched in phase 5c")
+        for name, rest, tier in timed:
+            measure_cold(torch, dev, name, rest, tier, q, k)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def measure_cold(torch, dev, name, rest, tier, q, k: int) -> None:
+    """The largest cold bucket of ``tier``: its dispatch (copy from pinned
+    memory + the scan kernel) against the same bucket resident in ``rest``
+    (host clock around calls that end in a copy to the host), the
+    host-to-device copy alone (CUDA events), and one admission uploaded on
+    the side stream (host clock until its event completes)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.distributed.segment_shards import (pack_search_blocks,
+                                                        stage_bucket)
+    tpack, tview, _ = _locked_pack(tier)
+    _, rview, _ = _locked_pack(rest)
+    cold = [bv for bv in tview.buckets if not bv.resident]
+    check(bool(cold), f"budget[{name}]: no cold bucket to time")
+    bc = max(cold, key=lambda bv: bv.stage_bytes)
+    br = next(bv for bv in rview.buckets if bv.cap == bc.cap)
+    vc = dataclasses.replace(tview, buckets=(bc,))
+    vr = dataclasses.replace(rview, buckets=(br,))
+
+    def host_ms(fn, iters=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters
+    gc_, dc_ = pack_search_blocks(vc, q, None, k)[0]
+    gr_, dr_ = pack_search_blocks(vr, q, None, k)[0]
+    check(bool(np.array_equal(gc_, gr_)) and bool(np.array_equal(dc_, dr_)),
+          f"cold[{name}]: the cold dispatch differs from the resident one")
+    ms_cold = host_ms(lambda: pack_search_blocks(vc, q, None, k))
+    ms_res = host_ms(lambda: pack_search_blocks(vr, q, None, k))
+    ms_copy = cuda_ms(torch, lambda: stage_bucket(bc, dev), iters=5)
+    with tier._lock:
+        staged = tpack.stage_admission(bc.cap)
+    t0 = time.perf_counter()
+    _, up = tpack.upload_admission(staged)
+    up.event.synchronize()
+    ms_admit = (time.perf_counter() - t0) * 1e3
+    del up
+    gauges = tier.stats()["obs"]["metrics"]["gauges"]
+    log(f"cold[{name}] bucket cap {bc.cap} ({bc.stage_bytes} bytes): "
+        f"cold dispatch {ms_cold:.3f} ms vs resident {ms_res:.3f} ms (host "
+        f"clock, {q.shape[0]} queries, no filter); host-to-device copy "
+        f"{ms_copy:.3f} ms = {bc.stage_bytes / ms_copy / 1e6:.2f} GB/s from "
+        f"pinned memory; one side-stream admission {ms_admit:.3f} ms; "
+        f"torch.cuda.memory_allocated {torch.cuda.memory_allocated()} bytes "
+        f"vs tier_resident_bytes {gauges.get('tier_resident_bytes')}")
+
+
 def compare_decode(torch, q, k, v, lengths, what: str) -> float:
     """B5 kernel vs twin on one input.  Both compute in fp32 and round the
     output once to q's dtype, so they differ by the summation order
@@ -1529,7 +1838,7 @@ def main() -> int:
     with Phase("3 exact filtered scan", torch):
         main_scan(torch, dev, N_SCAN, D, QUERIES, SEED, errs, keep)
     with Phase("4 index", torch):
-        main_index(torch, dev, N_INDEX, D, QUERIES, SEED)
+        main_index(torch, dev, N_INDEX, D, QUERIES, SEED, keep)
     with Phase("5 streaming", torch):
         keep["b1_live_share_stream"] = main_stream(torch, dev, N_STREAM, D,
                                                    QUERIES, SEED)
@@ -1538,6 +1847,11 @@ def main() -> int:
     log(f"main-path launches (phases 3-5): {launches}")
     for name, c in launches.items():
         check(c >= 1, f"kernel {name} was not launched on the main path")
+    with Phase("4b baselines", torch):
+        # the phase resets every count just before it and reads it after
+        for name, c in main_baselines(torch, dev, QUERIES, SEED,
+                                      keep).items():
+            launches[name] += c
     with Phase("5b sharded streaming", torch):
         # the phase resets every count just before it and reads it after
         sharded = main_sharded(torch, dev, N_SHARDED, D, QUERIES, SEED, keep)
@@ -1563,10 +1877,16 @@ def main() -> int:
                 f"{mm['plain_ms']:.3f} ms, library {mm['library_ms']:.3f} "
                 f"ms, bound {mm['bound_ms']:.3f} ms ({mm['bound_by']})"
                 + extra)
+    with Phase("5c durability and tiering", torch):
+        # the phase resets every count just before it and reads it after
+        for name, c in main_durability(torch, dev, keep, QUERIES).items():
+            launches[name] += c
 
     # ---- the generation side, after the retrieval phases' tensors go ---
     b1_live = {"stream": keep["b1_live_share_stream"],
                "sharded": keep["b1_live_share_5b"]}
+    b2_knn = keep["b2_knn"]
+    errs["pairwise_dist"] = max(errs["pairwise_dist"], b2_knn["max_abs_err"])
     keep.clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1615,6 +1935,9 @@ def main() -> int:
             "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
             "bound_by": mm["bound_by"], "library_ms": mm["library_ms"],
             "shape": mm["shape"]}
+        if name == "pairwise_dist":
+            # phase 4b's monolithic builds launch it at the kNN tile shape
+            entry["knn"] = b2_knn
         if name == "flash_decode":
             entry["device_ms"] = mm["device_ms"]
             entry["library_device_ms"] = mm["library_device_ms"]

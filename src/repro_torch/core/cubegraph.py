@@ -438,9 +438,12 @@ def load_index(directory: str, mmap_mode: Optional[str] = None,
                 nbrs=torch.as_tensor(np.array(z[f"l{i}_nbrs"]), device=dev),
                 xnbrs=torch.as_tensor(np.array(z[f"l{i}_xnbrs"]),
                                       device=dev)))
+    # np.array copies: a read-only memmap is never handed to torch, which
+    # would alias it on the CPU
     x = torch.as_tensor(np.array(x_np, np.float32), device=dev)
     idx = CubeGraphIndex(cfg, grid, layers, x,
-                         torch.as_tensor(np.asarray(s_np), device=dev).float(),
+                         torch.as_tensor(np.array(s_np, np.float32),
+                                         device=dev),
                          squared_norms(x), valid)
     idx.s_np = s_np          # fresh array (or caller-requested memmap view)
     return idx

@@ -29,6 +29,7 @@ __all__ = [
     "LayerGraph",
     "build_layer_graph",
     "topk_over_candidates",
+    "topk_over_all",
     "occlusion_prune",
     "squared_norms",
 ]
@@ -93,6 +94,36 @@ def topk_over_candidates(
             dd = -ip
         bad = (ids < 0) | (ids == exclude[:, None])
         dd = dd.masked_fill(bad, INF)
+        all_ids = torch.cat([run_ids, ids], dim=1)
+        all_d = torch.cat([run_d, dd], dim=1)
+        sd, order = torch.sort(all_d, dim=1, stable=True)
+        run_d = sd[:, :k]
+        run_ids = torch.gather(all_ids, 1, order[:, :k])
+    ids = torch.where(run_d < INF, run_ids, torch.full_like(run_ids, -1))
+    return ids.to(torch.int32), run_d
+
+
+def topk_over_all(query_vecs: torch.Tensor, x: torch.Tensor, k: int,
+                  exclude=None, col_chunk: int = 2048, metric: str = "l2"):
+    """Exact top-k of each query over every row of ``x`` — the candidate
+    list of a layer whose single cube holds all points.  The same running
+    top-k as :func:`topk_over_candidates` (ties keep the lower row), with
+    each column chunk scored by one distance matrix (kernel B2) instead of
+    per-row gathers, so the cost is a product rather than ``rows * n``
+    gathered vectors.  Returns ``(ids [b, k] int32, dists [b, k])``."""
+    from ..kernels.ops import pairwise_dist
+    dev = x.device
+    qv = query_vecs.to(dev).float()
+    b, n = qv.shape[0], x.shape[0]
+    exclude = (torch.full((b,), -1, dtype=torch.long, device=dev)
+               if exclude is None else _long(exclude, dev))
+    run_ids = torch.full((b, k), -1, dtype=torch.long, device=dev)
+    run_d = torch.full((b, k), INF, device=dev)
+    for lo in range(0, n, max(int(col_chunk), 1)):
+        hi = min(n, lo + max(int(col_chunk), 1))
+        dd = pairwise_dist(qv, x[lo:hi], metric=metric)
+        ids = torch.arange(lo, hi, device=dev)[None, :].expand(b, -1)
+        dd = dd.masked_fill(ids == exclude[:, None], INF)
         all_ids = torch.cat([run_ids, ids], dim=1)
         all_d = torch.cat([run_d, dd], dim=1)
         sd, order = torch.sort(all_d, dim=1, stable=True)
@@ -258,6 +289,7 @@ def build_layer_graph(
     k_entry: int = 4,
     n_random: int = 8,
     seed: int = 0,
+    dense_knn: bool = False,
 ) -> LayerGraph:
     """Alg. 1 (per-cube local graphs) + Alg. 2 (cross-cube edges) for one layer.
 
@@ -265,7 +297,10 @@ def build_layer_graph(
     exact-kNN pool before occlusion pruning; the surviving ones provide the
     long-range edges that incremental HNSW insertion produces implicitly.
     They are drawn with the same numpy generator calls as the reference
-    package, so both draw the same candidates."""
+    package, so both draw the same candidates.
+
+    ``dense_knn`` (a layer with one cube, as the baselines' monolithic
+    graph) scores the exact kNN pool with :func:`topk_over_all`."""
     dev = x.device
     n = x.shape[0]
     m = s.shape[1]
@@ -286,16 +321,24 @@ def build_layer_graph(
     xnbrs_out = np.full((n, 2 * m, m_cross), -1, dtype=np.int32)
 
     counts_of_row = cubes.counts
+    if dense_knn and cubes.n_nonempty != 1:
+        raise ValueError("dense_knn needs a layer whose points share one "
+                         f"cube, not {cubes.n_nonempty}")
 
     for lo in range(0, n, point_chunk):
         sel = ids_all[lo:lo + point_chunk]
         sel_t = torch.as_tensor(sel, device=dev).long()
         qv = x[sel_t]
         rows_sel = own_rows[sel]
-        cand = members[torch.as_tensor(rows_sel, device=dev)]   # [c, p_max]
-        knn_ids, knn_d = topk_over_candidates(
-            qv, cand, x, norms, k_cand, exclude=sel_t,
-            col_chunk=col_chunk, metric=metric)
+        if dense_knn:
+            knn_ids, knn_d = topk_over_all(qv, x, k_cand, exclude=sel_t,
+                                           col_chunk=col_chunk,
+                                           metric=metric)
+        else:
+            cand = members[torch.as_tensor(rows_sel, device=dev)]
+            knn_ids, knn_d = topk_over_candidates(
+                qv, cand, x, norms, k_cand, exclude=sel_t,
+                col_chunk=col_chunk, metric=metric)
         if n_random > 0:
             # random same-cube candidates -> long-range edge pool
             cnt = counts_of_row[rows_sel][:, None]           # [c, 1]

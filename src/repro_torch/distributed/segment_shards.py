@@ -40,6 +40,18 @@ d]`` and ``s [rows, cap, m]``; int8 buckets hold row-major ``codes [rows,
 cap, d]``, ``s``, ``xsq [rows, cap]`` and per-row ``scales [rows, d]``;
 with the graph read path on, ``nbrs [rows, cap, degp]`` int32 flattened
 positions (``row * cap + col``) ride along.  No lane or sublane padding.
+
+Residency (tiered storage, ``streaming/tiering.py``): a bucket is either
+**resident** (its blocks are device tensors) or **cold** (its blocks are
+byte-identical page-locked host tensors).  :meth:`BucketedShardPack.
+evict_bucket` demotes a block; a cold dispatch copies the block into a
+transient device buffer from the pinned copy (``non_blocking``) and
+launches the same kernel at the same shapes, so cold answers are the
+resident ones bit for bit.  An admission is staged under the owner's lock,
+uploaded on a side CUDA stream off the lock (an event marks its end) and
+installed under the lock, where the pack's consuming stream waits on that
+event.  The budget counts the CUDA bytes of resident blocks
+(``numel * element_size``); the transient cold buffer is not counted.
 """
 from __future__ import annotations
 
@@ -56,11 +68,12 @@ from ..kernels.ops import (PAD_META, block_layout, next_pow2, round_up,
                            sharded_quant_filtered_topk)
 from ..obs.trace import NULL_TRACE, block_ready
 
-__all__ = ["BucketView", "BucketedShardPack", "PackView",
+__all__ = ["BucketView", "BucketedShardPack", "PackView", "PAD_META",
            "SegmentShardSource", "ShardPack", "bucket_cap_for",
            "bucket_graph_seeds", "build_bucketed_pack", "build_shard_pack",
            "host_topk", "make_shard_mesh", "pack_search",
-           "pack_search_blocks", "pack_search_blocks_grouped"]
+           "pack_search_blocks", "pack_search_blocks_grouped",
+           "stage_bucket"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,13 +261,17 @@ class _SegEntry:
 
 @dataclasses.dataclass
 class _Bucket:
-    """One capacity class: padded ``[rows, cap, ·]`` device blocks whose
-    rows are allocated in slots of ``n_shards`` consecutive rows.
+    """One capacity class: padded ``[rows, cap, ·]`` blocks whose rows are
+    allocated in slots of ``n_shards`` consecutive rows.
 
     ``blk`` maps block names (``kernels.ops.block_layout`` plus ``nbrs``)
-    to device tensors.  A mutation replaces ``blk`` with a new dict whose
-    touched tensors are fresh copies, so a :class:`BucketView` captured
-    before it keeps reading the pre-mutation tensors."""
+    to tensors: device tensors while the bucket is ``resident``, page-
+    locked host tensors once it is evicted.  A mutation replaces ``blk``
+    with a new dict whose touched tensors are fresh copies (on whichever
+    tier the bucket lives), so a :class:`BucketView` captured before it
+    keeps reading the pre-mutation tensors.  ``gen`` counts mutations and
+    tier transitions, so an admission uploaded off the lock can tell that
+    it went stale before installing."""
 
     cap: int
     seg_ids: np.ndarray          # [rows] int64 owning segment (-1 = free)
@@ -263,6 +280,8 @@ class _Bucket:
     free_slots: List[int]
     gids_h: np.ndarray           # [rows, cap] int32 host mirror (-1 pad)
     blk: Dict[str, torch.Tensor]
+    resident: bool = True
+    gen: int = 0
 
     @property
     def n_rows(self) -> int:
@@ -270,9 +289,29 @@ class _Bucket:
         return int(self.gids_h.shape[0])
 
     @property
-    def nbytes(self) -> int:
-        """Device bytes held by this bucket's blocks."""
+    def full_nbytes(self) -> int:
+        """Bytes of this bucket's blocks on whichever tier they live —
+        also the upload size of admitting it."""
         return sum(t.numel() * t.element_size() for t in self.blk.values())
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes held by this bucket (0 when evicted)."""
+        return self.full_nbytes if self.resident else 0
+
+    @property
+    def host_nbytes(self) -> int:
+        """Host bytes of this bucket's cold copy (0 when resident)."""
+        return 0 if self.resident else self.full_nbytes
+
+
+@dataclasses.dataclass
+class _Upload:
+    """An admission's device blocks, copied on a side stream whose end
+    ``event`` marks (None on the CPU, where the copy is synchronous)."""
+
+    blk: Dict[str, torch.Tensor]
+    event: Optional[object] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -284,7 +323,11 @@ class BucketView:
     application edits it in place.  Quantized buckets expose ``codes`` /
     ``xsq`` / ``scales`` instead of ``x``; both expose ``s``.  ``fill``
     counts filled slots per row (the planner's live-point estimate) and
-    ``stage_bytes`` the bucket's block bytes."""
+    ``stage_bytes`` the bucket's block bytes (what admitting it uploads).
+
+    A **cold** view (``resident=False``) holds the bucket's page-locked
+    host tensors in the same fields; :func:`stage_bucket` copies them to
+    the device for one dispatch."""
 
     cap: int
     gids: torch.Tensor
@@ -327,7 +370,9 @@ class BucketView:
 @dataclasses.dataclass(frozen=True)
 class PackView:
     """Consistent snapshot of a :class:`BucketedShardPack` at one epoch —
-    what queries search while deltas keep mutating the pack."""
+    what queries search while deltas keep mutating the pack.  ``device``
+    is where the pack's kernels run (cold buckets' host blocks are copied
+    there per dispatch)."""
 
     epoch: int
     n_shards: int
@@ -335,18 +380,26 @@ class PackView:
     buckets: Tuple[BucketView, ...]
     nbytes: int                           # device bytes of the pack
     quantize: Optional[str] = None
-    host_nbytes: int = 0                  # every bucket stays resident
+    host_nbytes: int = 0                  # cold (evicted) bucket bytes
+    device: torch.device = torch.device("cpu")
 
     @property
     def n_rows(self) -> int:
         """Total allocated pack rows across buckets."""
         return sum(int(b.gids.shape[0]) for b in self.buckets)
 
-    @property
-    def device(self) -> torch.device:
-        """Device the bucket blocks live on."""
-        return (self.buckets[0].gids.device if self.buckets
-                else torch.device("cpu"))
+
+def stage_bucket(bv: BucketView, device: torch.device) -> BucketView:
+    """The view a dispatch reads: a resident view as is; a cold view's
+    blocks copied to ``device`` (``non_blocking`` from pinned memory, on
+    the current stream, so the kernel launched after it reads the copy).
+    The transient buffer is released when the returned view is dropped."""
+    if bv.resident:
+        return bv
+    names = ("gids", "s", "x", "codes", "xsq", "scales", "nbrs")
+    moved = {name: getattr(bv, name).to(device, non_blocking=True)
+             for name in names if getattr(bv, name) is not None}
+    return dataclasses.replace(bv, resident=True, **moved)
 
 
 class BucketedShardPack:
@@ -359,17 +412,31 @@ class BucketedShardPack:
     :class:`PackView` captured before a mutation keeps answering from the
     pre-mutation state.  The owner (``SegmentManager``) serializes
     mutations and view capture under its lock and stamps ``epoch`` after
-    each applied delta.  Every bucket stays resident on ``device``
-    (default: the card).
+    each applied delta.  Blocks live on ``device`` (default: the card)
+    while resident and in page-locked host memory once evicted; new
+    buckets start resident iff ``resident_default``.  ``fault_hook`` (a
+    plain callable, default None) fires at ``admission.stage`` /
+    ``admission.upload`` / ``admission.install``.
     """
 
     def __init__(self, n_shards: int, d: int, m: int, epoch: int = 0,
                  cap_multiple: int = 256, quantize: Optional[str] = None,
                  metrics=None, graph_degree: Optional[int] = None,
-                 device=None):
+                 device=None, resident_default: bool = True):
         from ..obs.metrics import NULL_REGISTRY
         self.metrics = NULL_REGISTRY if metrics is None else metrics
         self.device = resolve_device(device)
+        self.resident_default = bool(resident_default)
+        self.fault_hook = None
+        # host copies of a card pack's blocks are page-locked, so a cold
+        # dispatch or an admission copies them asynchronously
+        self._pin = self.device.type == "cuda"
+        # the stream the pack's kernels are launched on (the owner's
+        # queries), which waits on every admission's upload event, and the
+        # side stream admissions upload on
+        self._consumer = (torch.cuda.current_stream(self.device)
+                          if self._pin else None)
+        self._side = None
         self.n_shards = max(int(n_shards), 1)
         self.d = int(d)
         self.m = int(m)
@@ -398,13 +465,13 @@ class BucketedShardPack:
 
     @property
     def nbytes(self) -> int:
-        """Device bytes held by all bucket blocks."""
+        """Device bytes held by resident bucket blocks."""
         return sum(b.nbytes for b in self.buckets.values())
 
     @property
     def host_nbytes(self) -> int:
-        """Host bytes of evicted blocks (tiering is not ported: 0)."""
-        return 0
+        """Host bytes held by evicted (cold) bucket blocks."""
+        return sum(b.host_nbytes for b in self.buckets.values())
 
     def bucket_stats(self) -> Dict[int, Dict[str, int]]:
         """Per-bucket occupancy:
@@ -415,32 +482,54 @@ class BucketedShardPack:
                         "live_rows": int((b.seg_ids >= 0).sum()),
                         "segments": int(len({int(s) for s in b.seg_ids
                                              if s >= 0})),
-                        "resident": 1}
+                        "resident": int(b.resident)}
         return out
 
     # -- placement -----------------------------------------------------
-    def _new_block(self, rows: int, cap: int) -> Dict[str, torch.Tensor]:
-        """Fresh zero / ``PAD_META`` device blocks for ``rows`` bucket
-        rows in the pack's layout, plus the adjacency block when the graph
-        read path is on."""
-        out = {name: torch.full(shape, fill, dtype=dtype, device=self.device)
-               for name, (shape, dtype, fill)
-               in block_layout(self.mode, rows, cap, self.d, self.m).items()}
-        if self.graph_degree:
-            out["nbrs"] = torch.full((rows, cap, self.degp), -1,
-                                     dtype=torch.int32, device=self.device)
+    def _home(self, resident: bool) -> torch.device:
+        """Where a bucket's blocks live: the pack's device or the host."""
+        return self.device if resident else torch.device("cpu")
+
+    def _own(self, resident: bool, t: torch.Tensor) -> torch.Tensor:
+        """``t`` made fit for a bucket's blocks: page-locked when it is a
+        cold block of a card pack."""
+        if resident or not self._pin or t.is_pinned():
+            return t
+        return t.pin_memory()
+
+    def _clone(self, b: _Bucket, t: torch.Tensor) -> torch.Tensor:
+        """A copy-on-write copy of one of ``b``'s blocks, on its tier."""
+        if b.resident or not self._pin:
+            return t.clone()
+        out = torch.empty_like(t, pin_memory=True)
+        out.copy_(t)
         return out
+
+    def _new_block(self, rows: int, cap: int, resident: bool = True
+                   ) -> Dict[str, torch.Tensor]:
+        """Fresh zero / ``PAD_META`` blocks for ``rows`` bucket rows in the
+        pack's layout, plus the adjacency block when the graph read path
+        is on — on the device, or page-locked on the host for a cold
+        bucket."""
+        home = self._home(resident)
+        layout = block_layout(self.mode, rows, cap, self.d, self.m)
+        if self.graph_degree:
+            layout["nbrs"] = ((rows, cap, self.degp), torch.int32, -1)
+        return {name: self._own(resident, torch.full(
+                    shape, fill, dtype=dtype, device=home))
+                for name, (shape, dtype, fill) in layout.items()}
 
     def _bucket_for(self, cap: int) -> _Bucket:
         b = self.buckets.get(cap)
         if b is None:
             rows = self.n_shards
+            res = self.resident_default
             b = _Bucket(cap, seg_ids=np.full(rows, -1, np.int64),
                         t_min=np.full(rows, np.inf, np.float64),
                         t_max=np.full(rows, -np.inf, np.float64),
                         free_slots=[0],
                         gids_h=np.full((rows, cap), -1, np.int32),
-                        blk=self._new_block(rows, cap))
+                        blk=self._new_block(rows, cap, res), resident=res)
             self.buckets[cap] = b
         return b
 
@@ -450,8 +539,8 @@ class BucketedShardPack:
         if not b.free_slots:
             old_slots = b.n_rows // self.n_shards
             add_rows = old_slots * self.n_shards
-            add = self._new_block(add_rows, b.cap)
-            b.blk = {name: torch.cat([t, add[name]])
+            add = self._new_block(add_rows, b.cap, b.resident)
+            b.blk = {name: self._own(b.resident, torch.cat([t, add[name]]))
                      for name, t in b.blk.items()}
             b.gids_h = np.concatenate(
                 [b.gids_h, np.full((add_rows, b.cap), -1, np.int32)])
@@ -462,6 +551,7 @@ class BucketedShardPack:
             b.t_max = np.concatenate(
                 [b.t_max, np.full(add_rows, -np.inf, np.float64)])
             b.free_slots.extend(range(old_slots, 2 * old_slots))
+            b.gen += 1
         b.free_slots.sort()
         return b.free_slots.pop(0)
 
@@ -492,8 +582,8 @@ class BucketedShardPack:
         cb = np.zeros((self.n_shards, cap, self.d), np.int8)
         sb = np.full((self.n_shards, cap, self.m), PAD_META, np.float32)
         xb = np.zeros((self.n_shards, cap), np.float32)
-        scb = np.broadcast_to(np.asarray(scales, np.float32)[None, :],
-                              (self.n_shards, self.d))
+        scb = np.tile(np.asarray(scales, np.float32)[None, :],
+                      (self.n_shards, 1))
         for sh, idx in enumerate(self._shard_rows(len(src.gids))):
             cb[sh, : len(idx)] = codes[idx]
             sb[sh, : len(idx)] = src.s[idx]
@@ -551,15 +641,19 @@ class BucketedShardPack:
         for sh, idx in enumerate(self._shard_rows(n)):
             gb[sh, : len(idx)] = src.gids[idx]
         staged["gids"] = gb
-        # delta upload volume: what this seal/publish shipped to the device
-        self.metrics.counter("pack_delta_bytes_total").inc(
-            sum(arr.nbytes for arr in staged.values()))
+        if b.resident:
+            # delta upload volume: what this seal/publish shipped to the
+            # device (a cold bucket takes the delta in its host copy)
+            self.metrics.counter("pack_delta_bytes_total").inc(
+                sum(arr.nbytes for arr in staged.values()))
+        home = self._home(b.resident)
         blk = dict(b.blk)
         for name, block in staged.items():
-            t = blk[name].clone()
-            t[rows] = _put(block, self.device)
+            t = self._clone(b, blk[name])
+            t[rows] = _put(block, home)
             blk[name] = t
         b.blk = blk
+        b.gen += 1
         b.gids_h = b.gids_h.copy()
         b.gids_h[rows] = gb
         b.seg_ids[rows] = src.seg_id
@@ -587,6 +681,7 @@ class BucketedShardPack:
         b.t_min[rows] = np.inf
         b.t_max[rows] = -np.inf
         b.free_slots.append(e.slot)
+        b.gen += 1
         if not (b.seg_ids >= 0).any():
             del self.buckets[e.cap]
         return True
@@ -619,9 +714,11 @@ class BucketedShardPack:
             b = self.buckets[cap]
             rows = np.concatenate([r for r, _ in hits])
             cols = np.concatenate([c for _, c in hits])
-            s = b.blk["s"].clone()
-            s[_put(rows, self.device), _put(cols, self.device)] = PAD_META
+            home = self._home(b.resident)
+            s = self._clone(b, b.blk["s"])
+            s[_put(rows, home), _put(cols, home)] = PAD_META
             b.blk = dict(b.blk, s=s)
+            b.gen += 1
         return total
 
     def sync_alive(self, alive: np.ndarray) -> int:
@@ -632,6 +729,95 @@ class BucketedShardPack:
                 for e in self._entries.values()]
         dead = np.concatenate(dead) if dead else np.empty(0, np.int64)
         return self.mark_dead(dead) if len(dead) else 0
+
+    # -- tier transitions (tiered storage, streaming/tiering.py) -------
+    def evict_bucket(self, cap: int) -> int:
+        """Demote one resident bucket's device blocks to page-locked host
+        copies (call under the owner's lock).  In-flight views keep the
+        device tensors they captured alive; new views of this bucket read
+        the byte-identical host copy.  Returns the device bytes released
+        (the allocator frees them once no view holds them)."""
+        b = self.buckets.get(cap)
+        if b is None or not b.resident:
+            return 0
+        freed = b.nbytes
+        host = {}
+        for name, t in b.blk.items():
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=self._pin)
+            h.copy_(t)
+            host[name] = h
+        b.blk = host
+        b.resident = False
+        b.gen += 1
+        return freed
+
+    def _fault(self, point: str) -> None:
+        if self.fault_hook is not None:
+            self.fault_hook(point)
+
+    def stage_admission(self, cap: int):
+        """Host half of an admission: snapshot a cold bucket's host blocks
+        (call under the owner's lock).  Returns ``(gen, blocks)`` or None
+        when the bucket is missing or already resident.  Fault point
+        ``admission.stage`` fires first — a crash here mutates nothing."""
+        self._fault("admission.stage")
+        b = self.buckets.get(cap)
+        if b is None or b.resident:
+            return None
+        return b.gen, dict(b.blk)
+
+    def upload_admission(self, staged):
+        """Device half of an admission, off the owner's lock: copy the
+        staged page-locked blocks to the device on the pack's side stream
+        and record an event at the end of the copies.  Returns ``(gen,
+        upload)`` for :meth:`install_admission`.  Fault point
+        ``admission.upload`` fires first — a crash strands nothing (the
+        host copy still lives in the bucket)."""
+        self._fault("admission.upload")
+        gen, blocks = staged
+        if not self._pin:
+            return gen, _Upload({name: t.to(self.device, copy=True)
+                                 for name, t in blocks.items()})
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._side):
+            dev = {name: t.to(self.device, non_blocking=True)
+                   for name, t in blocks.items()}
+            event = torch.cuda.Event()
+            event.record(self._side)
+        return gen, _Upload(dev, event)
+
+    def install_admission(self, cap: int, gen: int, upload: _Upload) -> int:
+        """Publish an uploaded admission iff the bucket is still cold and
+        unchanged since :meth:`stage_admission` (call under the owner's
+        lock).  The consuming stream waits on the upload's event (on the
+        device, not the host), and every uploaded tensor is recorded on
+        that stream for the caching allocator.  Returns the admitted
+        device bytes; 0 means the upload went stale (a delta landed
+        mid-upload) and was discarded.  Fault point
+        ``admission.install`` fires first — a crash leaves the bucket
+        cold, consistent and admittable again."""
+        self._fault("admission.install")
+        b = self.buckets.get(cap)
+        if b is None or b.resident or b.gen != gen:
+            return 0
+        if upload.event is not None:
+            self._consumer.wait_event(upload.event)
+            for t in upload.blk.values():
+                t.record_stream(self._consumer)
+        b.blk = dict(upload.blk)
+        b.resident = True
+        b.gen += 1
+        return b.nbytes
+
+    def admit_bucket(self, cap: int) -> int:
+        """Synchronous admission (the owner's lock held throughout):
+        stage, upload and install one cold bucket.  Returns the admitted
+        device bytes (0 = missing or already resident)."""
+        staged = self.stage_admission(cap)
+        if staged is None:
+            return 0
+        return self.install_admission(cap, *self.upload_admission(staged))
 
     # -- read side -----------------------------------------------------
     def _bucket_view(self, cap: int, b: _Bucket) -> BucketView:
@@ -647,34 +833,49 @@ class BucketedShardPack:
                           s=blk["s"], x=blk.get("x"),
                           codes=blk.get("codes"), xsq=blk.get("xsq"),
                           scales=blk.get("scales"), nbrs=blk.get("nbrs"),
-                          entries=entries, stage_bytes=b.nbytes, fill=fill)
+                          entries=entries, resident=b.resident,
+                          stage_bytes=b.full_nbytes, fill=fill)
+
+    def bucket_view(self, cap: int) -> Optional[BucketView]:
+        """Fresh snapshot of one bucket (e.g. right after an admission, so
+        the in-flight query dispatches the resident block)."""
+        b = self.buckets.get(cap)
+        if b is None or not (b.seg_ids >= 0).any():
+            return None
+        return self._bucket_view(cap, b)
 
     def view(self) -> PackView:
         """Immutable snapshot for one query (capture under the owner's
-        lock).  Buckets with no live slot are dropped."""
+        lock).  Buckets with no live slot are dropped; cold buckets are
+        kept, their host blocks dispatched through the same kernels."""
         views = [self._bucket_view(cap, self.buckets[cap])
                  for cap in sorted(self.buckets)
                  if (self.buckets[cap].seg_ids >= 0).any()]
         return PackView(self.epoch, self.n_shards, self.m, tuple(views),
-                        self.nbytes, quantize=self.quantize)
+                        self.nbytes, quantize=self.quantize,
+                        host_nbytes=self.host_nbytes, device=self.device)
 
 
 def build_bucketed_pack(sources: Sequence[SegmentShardSource], n_shards: int,
                         epoch: int = 0, cap_multiple: int = 256,
                         quantize: Optional[str] = None, metrics=None,
                         graph_degree: Optional[int] = None,
-                        device=None) -> BucketedShardPack:
+                        device=None, resident_default: bool = True
+                        ) -> BucketedShardPack:
     """Cold-build a :class:`BucketedShardPack`: the same
     :meth:`~BucketedShardPack.add_segment` delta applied once per
     segment, so an incrementally maintained pack and a from-scratch build
-    of the same segments answer identically."""
+    of the same segments answer identically.  ``resident_default=False``
+    builds every bucket in host memory (no device upload): a budgeted
+    tier then admits only the buckets that fit."""
     if not sources:
         raise ValueError("build_bucketed_pack needs at least one segment")
     pack = BucketedShardPack(n_shards, sources[0].x.shape[1],
                              sources[0].s.shape[1], epoch=epoch,
                              cap_multiple=cap_multiple, quantize=quantize,
                              metrics=metrics, graph_degree=graph_degree,
-                             device=device)
+                             device=device,
+                             resident_default=resident_default)
     for src in sources:
         pack.add_segment(src)
     return pack
@@ -754,7 +955,8 @@ def _merge_shard_topk(ids, dd, gid_stack, active, k: int):
 def pack_search_blocks(view: PackView, queries: np.ndarray,
                        filt: Optional[Filter], k: int,
                        t_lo: float = -np.inf, t_hi: float = np.inf,
-                       metric: str = "l2", trace=None, observe=None
+                       metric: str = "l2", trace=None, observe=None,
+                       on_cold=None
                        ) -> List[Tuple[np.ndarray, np.ndarray]]:
     """One fused-kernel launch per non-empty, temporally unpruned bucket.
 
@@ -769,7 +971,13 @@ def pack_search_blocks(view: PackView, queries: np.ndarray,
     ``trace`` opens one span per dispatched bucket, stopped only after
     the bucket's device results are ready; ``observe``
     (``BucketStats.observe``) receives one observation per bucket —
-    ``cache_hit`` meaning the scan kernel was already loaded."""
+    ``cache_hit`` meaning the scan kernel was already loaded.
+
+    A cold bucket (``resident=False``) is copied to the view's device for
+    its dispatch (:func:`stage_bucket`) and scanned by the same kernel at
+    the same shapes, so its answers are the resident block's bit for bit;
+    ``on_cold(cap, stage_bytes)`` fires once per dispatched cold bucket
+    (tier-miss accounting)."""
     queries = np.atleast_2d(np.asarray(queries, np.float32))
     trace = NULL_TRACE if trace is None else trace
     want_obs = observe is not None or trace.enabled
@@ -783,7 +991,10 @@ def pack_search_blocks(view: PackView, queries: np.ndarray,
             if observe is not None:       # whole-block temporal prune
                 observe(bv.cap, rows=rows, active_rows=0)
             continue
-        dev = bv.gids.device
+        dev = view.device
+        cold = not bv.resident
+        if cold and on_cold is not None:
+            on_cold(bv.cap, bv.stage_bytes)
         if q is None or q.device != dev:
             q = torch.as_tensor(queries, device=dev)
         kk = min(k, bv.cap)               # per-shard list length
@@ -794,7 +1005,8 @@ def pack_search_blocks(view: PackView, queries: np.ndarray,
         cache_hit = kernels_loaded(mode) if want_obs else False
         with trace.span("bucket_dispatch", cap=bv.cap, rows=rows,
                         active_rows=n_active, k_out=k_out,
-                        quantized=bv.quantized) as sp:
+                        quantized=bv.quantized, resident=not cold) as sp:
+            bv = stage_bucket(bv, dev)
             if bv.quantized:
                 ids, dd = sharded_quant_filtered_topk(
                     q, bv.codes, bv.s, bv.xsq, bv.scales, filt, kk,
@@ -829,8 +1041,8 @@ def pack_search_blocks_grouped(view: PackView, groups, **kw):
 def pack_search(pack, queries: np.ndarray, filt: Optional[Filter],
                 k: int, t_lo: float = -np.inf, t_hi: float = np.inf,
                 metric: str = "l2", lookup=None,
-                rerank_multiple: int = 4, trace=None, observe=None
-                ) -> Tuple[np.ndarray, np.ndarray]:
+                rerank_multiple: int = 4, trace=None, observe=None,
+                on_cold=None) -> Tuple[np.ndarray, np.ndarray]:
     """Fan one query batch out over every active shard of the pack and
     merge the shard-local top-k exactly.
 
@@ -850,7 +1062,7 @@ def pack_search(pack, queries: np.ndarray, filt: Optional[Filter],
             else k
         blocks = pack_search_blocks(view, queries, filt, k_fetch, t_lo=t_lo,
                                     t_hi=t_hi, metric=metric, trace=trace,
-                                    observe=observe)
+                                    observe=observe, on_cold=on_cold)
         if not blocks:
             return (np.full((b, k), -1, np.int64),
                     np.full((b, k), np.inf, np.float32))

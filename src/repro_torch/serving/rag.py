@@ -55,10 +55,13 @@ class DocumentStore:
       ingest, seal/compaction/TTL lifecycle, segment fan-out queries.
       Document list positions double as global point ids.
 
-    ``quantize="int8"`` and ``read_path="auto"|"graph"`` overlay the
-    streaming config and turn the sharded read path on, as in the
-    reference.  Indexes live on ``device`` (default: the first CUDA card).
-    The port has one card, so there is no ``shard_mesh``.
+    ``quantize="int8"``, ``read_path="auto"|"graph"`` and
+    ``device_budget_bytes`` overlay the streaming config and turn the
+    sharded read path on, as in the reference: with a budget the store's
+    device memory is a cache over the sealed corpus, cold buckets living
+    in page-locked host memory and streaming through the same kernels.
+    Indexes live on ``device`` (default: the first CUDA card).  The port
+    has one card, so there is no ``shard_mesh``.
     """
 
     def __init__(self, docs: Sequence[Document],
@@ -68,8 +71,6 @@ class DocumentStore:
                  quantize: Optional[str] = None,
                  read_path: Optional[str] = None,
                  device_budget_bytes: Optional[int] = None, device=None):
-        if device_budget_bytes is not None:
-            raise _unported("tiered storage (device_budget_bytes)", 9)
         self.docs = list(docs)
         self.streaming = bool(streaming)
         self.device = resolve_device(device)
@@ -86,6 +87,10 @@ class DocumentStore:
                 stream_cfg = dataclasses.replace(
                     stream_cfg, read_path=read_path,
                     n_shards=max(stream_cfg.n_shards, 1))
+            if device_budget_bytes is not None:
+                stream_cfg = dataclasses.replace(
+                    stream_cfg, device_budget_bytes=device_budget_bytes,
+                    n_shards=max(stream_cfg.n_shards, 1))
             self.manager = SegmentManager(x.shape[1], s.shape[1], stream_cfg,
                                           device=self.device)
             self.manager.ingest(x, s)
@@ -97,20 +102,53 @@ class DocumentStore:
             if read_path is not None and read_path != "scan":
                 raise ValueError("read_path requires a streaming store "
                                  "(DocumentStore(streaming=True))")
+            if device_budget_bytes is not None:
+                raise ValueError("device_budget_bytes requires a streaming "
+                                 "store (DocumentStore(streaming=True))")
             self.manager = None
             self.index = CubeGraphIndex.build(x, s, index_cfg,
                                               device=self.device)
-        # a streaming store shares the manager's registry; a static store
-        # gets its own
+        self._init_obs()
+
+    def _init_obs(self) -> None:
+        """A streaming store shares the manager's registry; a static store
+        gets its own."""
         self.obs = self.manager.obs if self.streaming else StreamObs()
         self.metrics = self.obs.registry
 
     @classmethod
-    def restore(cls, docs, directory: str, **kw) -> "DocumentStore":
-        raise _unported("DocumentStore.restore (persistence)", 8)
+    def restore(cls, docs: Sequence[Document], directory: str,
+                stream_cfg: Optional[StreamConfig] = None, device=None,
+                resume: bool = True) -> "DocumentStore":
+        """Warm-start a streaming store from a snapshot directory (written
+        by either package) instead of re-ingesting: the manager restores
+        on ``device`` (default: the card) via ``SegmentManager.restore``
+        and answers like the replica that wrote the snapshot.  ``docs``
+        must be the snapshot-time document list, in order — store
+        positions double as global point ids."""
+        obj = cls.__new__(cls)
+        obj.docs = list(docs)
+        obj.streaming = True
+        obj.index = None
+        obj.manager = SegmentManager.restore(directory, cfg=stream_cfg,
+                                             device=device, resume=resume)
+        obj.device = obj.manager.device
+        obj._init_obs()
+        if obj.manager.n_total != len(obj.docs):
+            raise ValueError(
+                f"snapshot knows {obj.manager.n_total} points but "
+                f"{len(obj.docs)} documents were provided — pass exactly "
+                "the snapshot-time document list (insert new documents "
+                "through store.insert after restoring)")
+        return obj
 
     def snapshot_to(self, directory: str) -> dict:
-        raise _unported("DocumentStore.snapshot_to (persistence)", 8)
+        """Durably snapshot the streaming backend (see
+        ``SegmentManager.snapshot_to``); a static store has nothing
+        incremental to persist (use ``core.cubegraph.save_index``)."""
+        if not self.streaming:
+            raise ValueError("snapshot_to requires a streaming store")
+        return self.manager.snapshot_to(directory)
 
     def retrieve(self, query_emb: np.ndarray, filt: Filter, k: int,
                  ef: int = 64, trace=None,

@@ -34,14 +34,26 @@ O(changed-segment) deltas at every seal / publish / expiry under the lock
 or by stitched graph traversal chosen per bucket by the cost planner
 (``read_path="graph"|"auto"``, kernel B4).
 
-Tiering (``device_budget_bytes``), persistence, fault injection and
-grouped queries are options of later slices: they raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Durability (``persist_dir``, :meth:`SegmentManager.snapshot_to`,
+:meth:`SegmentManager.restore`; ``streaming/persistence.py``): every
+ingest / delete / point-store GC is WAL-logged before it mutates anything,
+and every segment-list transition checkpoints segment artifacts and an
+atomic manifest in the JAX package's on-disk format.
+
+Tiered storage (``device_budget_bytes``; ``streaming/tiering.py``): the
+bucketed pack keeps at most that many CUDA bytes of bucket blocks
+resident; the coldest buckets live in page-locked host memory and stream
+through the same kernels per dispatch, so answers stay the all-resident
+ones bit for bit.
+
+Fault injection and grouped queries are options of later slices: they
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import threading
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -95,8 +107,13 @@ class StreamConfig:
     # Build and load the pack's kernels at seal / publish time (off the
     # query path).
     pack_warm_compile: bool = True
-    device_budget_bytes: Optional[int] = None   # tiering (not ported yet)
-    tier_window_history: int = 12
+    # Tiered storage (requires n_shards >= 1 and incremental_pack): at
+    # most this many CUDA bytes of bucket blocks stay resident; the rest
+    # live in page-locked host memory and stream per dispatch.
+    device_budget_bytes: Optional[int] = None
+    tier_window_history: int = 12         # query windows kept for drift
+    # Stage cold buckets the predicted next query window touches, on a
+    # supervised background thread after each sharded query.
     tier_prefetch: bool = True
     # Observability: lifecycle/query counters and latency histograms.
     obs_enabled: bool = True
@@ -104,9 +121,12 @@ class StreamConfig:
     # partial answer comes back marked ``degraded=True``.  None = unbounded.
     query_deadline_ms: Optional[float] = None
     store_chunk: int = 4096               # PointStore GC granularity (rows)
-    persist_dir: Optional[str] = None     # durability (not ported yet)
-    wal_fsync_every: int = 32
-    mmap_segments: bool = True
+    # Durability: WAL-log every ingest / delete / GC and checkpoint at each
+    # segment-list transition, so SegmentManager.restore(persist_dir)
+    # recovers a crashed replica.
+    persist_dir: Optional[str] = None
+    wal_fsync_every: int = 32             # WAL appends between fsyncs
+    mmap_segments: bool = True            # restore x/s via np.load(mmap_mode)
     index_cfg: CubeGraphConfig = dataclasses.field(
         default_factory=CubeGraphConfig)
 
@@ -148,7 +168,7 @@ class SegmentManager:
     """
 
     def __init__(self, d: int, m: int, cfg: StreamConfig = StreamConfig(),
-                 device=None):
+                 device=None, _restoring: bool = False):
         self.d = int(d)
         self.m = int(m)
         self.cfg = cfg
@@ -174,10 +194,14 @@ class SegmentManager:
                 raise ValueError("read_path='graph'/'auto' requires "
                                  "incremental_pack=True (graph blocks ride "
                                  "the bucketed pack)")
-        if cfg.persist_dir is not None:
-            raise _unported("persistence (persist_dir)", 8)
         if cfg.device_budget_bytes is not None:
-            raise _unported("tiered storage (device_budget_bytes)", 9)
+            if cfg.device_budget_bytes < 0:
+                raise ValueError("device_budget_bytes must be >= 0")
+            if cfg.n_shards < 1 or not cfg.incremental_pack:
+                raise ValueError("device_budget_bytes requires the sharded "
+                                 "incremental pack (n_shards >= 1, "
+                                 "incremental_pack=True) — residency is a "
+                                 "bucketed-pack concept")
         self.device = resolve_device(device)
         self.time_dim = cfg.time_dim % m
         self.delta = DeltaBuffer(d, m, self.time_dim,
@@ -207,6 +231,29 @@ class SegmentManager:
         self.obs = StreamObs(enabled=cfg.obs_enabled)
         from .resilience import Supervisor
         self.supervisor = Supervisor(registry=self.obs.registry)
+        # Tiered storage: TierState owns the budget and the query-window
+        # history; the manager serializes every evict / admit under _lock.
+        self.tier = None
+        self._prefetch_thread: Optional[threading.Thread] = None
+        if cfg.device_budget_bytes is not None:
+            from .tiering import TierState
+            self.tier = TierState(cfg.device_budget_bytes,
+                                  registry=self.obs.registry,
+                                  window_history=cfg.tier_window_history)
+        self.persist = None                         # StreamPersistence
+        self._suspend_ckpt = False                  # batched seals in ingest
+        if cfg.persist_dir and not _restoring:
+            from .persistence import MANIFEST_NAME, StreamPersistence
+            if os.path.exists(os.path.join(cfg.persist_dir, MANIFEST_NAME)):
+                raise ValueError(
+                    f"{cfg.persist_dir!r} already holds a snapshot — use "
+                    "SegmentManager.restore(...) to resume it")
+            self.persist = StreamPersistence(cfg.persist_dir,
+                                             cfg.wal_fsync_every,
+                                             metrics=self.obs.registry)
+            # publish an (empty) manifest at once, so the directory is
+            # restorable even after a crash before the first seal
+            self.persist.checkpoint(self)
 
     # ------------------------------------------------------------------
     # Options of later slices
@@ -214,16 +261,21 @@ class SegmentManager:
     def install_fault_injector(self, inj) -> None:
         raise _unported("fault injection", 10)
 
-    def snapshot_to(self, directory: str) -> dict:
-        raise _unported("persistence (snapshot_to)", 8)
-
-    @classmethod
-    def restore(cls, directory: str, cfg: Optional[StreamConfig] = None,
-                **kw) -> "SegmentManager":
-        raise _unported("persistence (restore)", 8)
-
     def query_grouped(self, groups, trace=None, observe_group=None):
         raise _unported("grouped queries (continuous filtered batching)", 11)
+
+    def checkpoint_async(self) -> Optional[threading.Thread]:
+        """Run a durable checkpoint on the supervised ``checkpointer``
+        worker (at most one alive); a failing checkpoint is retried with
+        backoff and lands in ``stats()["health"]``.  Returns the thread,
+        or None without persistence attached."""
+        if self.persist is None:
+            return None
+
+        def _ckpt():
+            with self._lock:
+                self.persist.checkpoint(self)
+        return self.supervisor.spawn("checkpointer", _ckpt)
 
     # ------------------------------------------------------------------
     # Liveness ledger / point store
@@ -249,9 +301,14 @@ class SegmentManager:
         return self.store.get(gids)
 
     def gc_store(self) -> int:
-        """Free point-store chunks with no live id left; returns #rows."""
+        """Free point-store chunks with no live id left; returns #rows.
+        WAL-logged (with persistence attached), so restore replays the
+        same chunk frees."""
         with self._lock:
-            freed = self.store.gc(self.alive)
+            dead = self.store.dead_chunks(self.alive)
+            if self.persist is not None and len(dead):
+                self.persist.log_gc(dead)         # log-before-mutate
+            freed = self.store.free_chunks(dead)
             self.counters["store_gc_points"] += freed
         return freed
 
@@ -267,20 +324,46 @@ class SegmentManager:
         s = np.atleast_2d(np.asarray(s, np.float64))
         n_add = x.shape[0]
         with self._lock:
+            epoch0 = self.epoch
+            # log-before-mutate: a failed WAL append rolls back in the log
+            # and leaves the manager untouched
+            if self.persist is not None and n_add:
+                self.persist.log_ingest(self.store.n_total, x, s)
             gids = self.store.append(x, s)
             self._alive = grow_rows(self.n_total, (self._alive, False))[0]
             self._alive[gids] = True
             self.now = max(self.now, float(s[:, self.time_dim].max()))
             self.obs.registry.counter(
                 "lifecycle_ingested_points_total").inc(n_add)
-            lo = 0
-            while lo < n_add:
-                room = max(self.cfg.seal_max_points - self.delta.n_live, 1)
-                take = min(room, n_add - lo)
-                self.delta.append(x[lo:lo + take], s[lo:lo + take],
-                                  gids[lo:lo + take])
-                lo += take
-                self.maybe_seal()
+            # one checkpoint at the end of the batch, so a seal mid-loop
+            # never captures a half-appended delta buffer
+            self._suspend_ckpt = True
+            try:
+                lo = 0
+                while lo < n_add:
+                    room = max(self.cfg.seal_max_points - self.delta.n_live,
+                               1)
+                    take = min(room, n_add - lo)
+                    self.delta.append(x[lo:lo + take], s[lo:lo + take],
+                                      gids[lo:lo + take])
+                    lo += take
+                    self.maybe_seal()
+            finally:
+                self._suspend_ckpt = False
+            if self.persist is not None and self.epoch != epoch0:
+                self.persist.checkpoint(self)
+        return gids
+
+    def _apply_ingest(self, x: np.ndarray, s: np.ndarray) -> np.ndarray:
+        """WAL-replay ingest: store / liveness / delta updates with no
+        logging and no sealing (restore reproduces the last manifest's
+        segmentation; an over-full delta seals on the next live
+        ingest)."""
+        gids = self.store.append(x, s)
+        self._alive = grow_rows(self.n_total, (self._alive, False))[0]
+        self._alive[gids] = True
+        self.now = max(self.now, float(s[:, self.time_dim].max()))
+        self.delta.append(x, s, gids)
         return gids
 
     def delete(self, gids: Sequence[int]) -> int:
@@ -290,15 +373,26 @@ class SegmentManager:
             live = gids[self._alive[gids]]
             if len(live) == 0:
                 return 0
-            self._alive[live] = False
-            hits = self.delta.delete(live)
-            for seg in self.segments:
-                hits += seg.delete(live)
-            self.counters["deleted"] += hits
-            self.obs.registry.counter("lifecycle_deleted_points_total").inc(
-                len(live))
+            if self.persist is not None:     # log-before-mutate
+                self.persist.log_delete(live)
+            hits = self._apply_delete(live)
             if self._pack is not None:
                 self._pack.mark_dead(live)
+        return hits
+
+    def _apply_delete(self, live: np.ndarray) -> int:
+        """Shared core of :meth:`delete` and WAL replay: flip liveness and
+        lazily delete from the delta buffer and every sealed segment."""
+        live = live[self._alive[live]]
+        if len(live) == 0:
+            return 0
+        self._alive[live] = False
+        hits = self.delta.delete(live)
+        for seg in self.segments:
+            hits += seg.delete(live)
+        self.counters["deleted"] += hits
+        self.obs.registry.counter("lifecycle_deleted_points_total").inc(
+            len(live))
         return hits
 
     # ------------------------------------------------------------------
@@ -337,6 +431,7 @@ class SegmentManager:
             self.obs.registry.counter("lifecycle_sealed_points_total").inc(
                 len(gl))
             self._apply_pack_delta((), (seg,))
+            self._checkpoint_if_attached()
         self._warm_pack()
         return seg
 
@@ -413,6 +508,7 @@ class SegmentManager:
                     pack.add_segment(src)
             pack.epoch = self.epoch
             self._update_pack_gauges(pack)
+            self._tier_enforce(pack)
         except Exception as exc:
             self.supervisor.note_error("pack_delta", exc)
             self._pack = None
@@ -430,6 +526,171 @@ class SegmentManager:
         for cap, row in pack.bucket_stats().items():
             for key in ("rows", "live_rows", "segments", "resident"):
                 reg.gauge(f'pack_bucket_{key}{{cap="{cap}"}}').set(row[key])
+
+    # ------------------------------------------------------------------
+    # Tiered storage (streaming/tiering.py): device memory as a cache
+    # ------------------------------------------------------------------
+    def _bucket_meta(self, pack) -> List[dict]:
+        """Per-bucket policy inputs for the tier (caller holds the lock):
+        capacity, residency, full block bytes, the bucket's packed time
+        span and its rolling BucketStats entry (None before any
+        observation)."""
+        snap = (self.obs.bucket_stats.snapshot()
+                if self.obs.bucket_stats is not None else {})
+        meta = []
+        for cap, b in pack.buckets.items():
+            alloc = b.seg_ids >= 0
+            if not alloc.any():
+                continue
+            meta.append({"cap": cap, "resident": b.resident,
+                         "nbytes": b.full_nbytes,
+                         "t_min": float(b.t_min[alloc].min()),
+                         "t_max": float(b.t_max[alloc].max()),
+                         "stats": snap.get(str(cap))})
+        return meta
+
+    def _tier_enforce(self, pack, protect: Tuple[int, ...] = ()) -> int:
+        """Evict coldest-first until the pack's resident bytes fit the
+        budget (caller holds the lock; no-op without a tier or with a
+        monolithic pack).  ``protect`` names capacities a caller just
+        admitted, which are never the immediate victim.  Returns the
+        device bytes released."""
+        if self.tier is None or not hasattr(pack, "evict_bucket"):
+            return 0
+        freed = 0
+        need = pack.nbytes - self.tier.budget_bytes
+        if need > 0:
+            meta = [m for m in self._bucket_meta(pack)
+                    if m["cap"] not in protect]
+            for cap in self.tier.pick_victims(meta, need):
+                freed += pack.evict_bucket(cap)
+                self.obs.registry.counter("tier_evictions_total").inc()
+                if pack.nbytes <= self.tier.budget_bytes:
+                    break
+        self._update_tier_gauges(pack)
+        return freed
+
+    def _update_tier_gauges(self, pack) -> None:
+        """Refresh the tier occupancy gauges (caller holds the lock)."""
+        if self.tier is None:
+            return
+        reg = self.obs.registry
+        reg.gauge("tier_budget_bytes").set(self.tier.budget_bytes)
+        reg.gauge("tier_resident_bytes").set(pack.nbytes)
+        reg.gauge("tier_host_bytes").set(getattr(pack, "host_nbytes", 0))
+
+    def tier_admit(self, cap: int, prefetch: bool = False,
+                   expect_epoch: Optional[int] = None):
+        """Admit one cold bucket's block back to the device (the query
+        path calls this when the planner prices ``admit_cheaper``), then
+        re-enforce the budget with the admitted bucket protected.  Returns
+        the refreshed resident ``BucketView``, or None when there is
+        nothing to admit or the block alone exceeds the budget (it stays
+        cold and streams per dispatch).  ``expect_epoch`` guards an
+        in-flight query's snapshot: when the pack has moved past it the
+        admission still happens (it helps the next query) but None is
+        returned, so the caller keeps its epoch-consistent cold view."""
+        with self._lock:
+            pack = self._pack
+            if (self.tier is None or pack is None
+                    or not hasattr(pack, "admit_bucket")):
+                return None
+            b = pack.buckets.get(cap)
+            if b is None:
+                return None
+            stale = expect_epoch is not None and pack.epoch != expect_epoch
+            if not b.resident:
+                if b.full_nbytes > self.tier.budget_bytes:
+                    return None
+                if not pack.admit_bucket(cap):
+                    return None         # pragma: no cover - defensive
+                reg = self.obs.registry
+                reg.counter("tier_admissions_total").inc()
+                if prefetch:
+                    reg.counter("tier_prefetch_admissions_total").inc()
+            self._tier_enforce(pack, protect=(cap,))
+            return None if stale else pack.bucket_view(cap)
+
+    def _tier_warm_admit(self, pack) -> None:
+        """Budget-bounded warm-up of a cold-built pack (restore / first
+        sharded query; caller holds the lock): admit buckets most-recent-
+        span first while they fit, then flip ``resident_default`` so
+        buckets created by later deltas start on the device (enforcement
+        keeps the budget)."""
+        for m in sorted(self._bucket_meta(pack), key=lambda m: -m["t_max"]):
+            if (not m["resident"]
+                    and pack.nbytes + m["nbytes"] <= self.tier.budget_bytes):
+                pack.admit_bucket(m["cap"])
+                self.obs.registry.counter("tier_admissions_total").inc()
+        pack.resident_default = True
+        self._update_tier_gauges(pack)
+
+    def maybe_prefetch(self) -> Optional[threading.Thread]:
+        """Stage cold buckets the predicted next query window will touch,
+        on a supervised background thread (at most one alive; failures
+        are retried and recorded in ``stats()["health"]``).  The query
+        path calls this after each sharded dispatch; returns the thread,
+        or None when there is nothing to prefetch."""
+        if self.tier is None or not self.cfg.tier_prefetch:
+            return None
+        with self._lock:
+            pack = self._pack
+            if pack is None or not hasattr(pack, "stage_admission"):
+                return None
+            if not self.tier.prefetch_targets(self._bucket_meta(pack)):
+                return None
+        t = self.supervisor.spawn("prefetcher", self._prefetch_once)
+        self._prefetch_thread = t
+        return t
+
+    def _prefetch_once(self) -> int:
+        """One prefetch round: snapshot the cold targets under the lock,
+        upload their host blocks lock-free on the pack's side stream (the
+        thread first sets its CUDA device), and install each upload under
+        the lock only if the pack and the bucket's mutation generation
+        are unchanged (a delta that landed mid-upload discards the stale
+        upload — the bucket stays cold and correct).  Returns the buckets
+        admitted."""
+        if self.device.type == "cuda":
+            import torch
+            torch.cuda.set_device(self.device)
+        with self._lock:
+            pack = self._pack
+            if (self.tier is None or pack is None
+                    or not hasattr(pack, "stage_admission")):
+                return 0
+            staged = []
+            budget = self.tier.budget_bytes
+            for cap in self.tier.prefetch_targets(self._bucket_meta(pack)):
+                b = pack.buckets.get(cap)
+                if b is None or b.resident or b.full_nbytes > budget:
+                    continue
+                st = pack.stage_admission(cap)
+                if st is not None:
+                    staged.append((cap, st))
+        if not staged:
+            return 0
+        ups = [(cap, pack.upload_admission(st)) for cap, st in staged]
+        admitted = 0
+        with self._lock:
+            if self._pack is not pack:
+                return 0
+            reg = self.obs.registry
+            for cap, (gen, up) in ups:
+                if pack.install_admission(cap, gen, up):
+                    admitted += 1
+                    reg.counter("tier_admissions_total").inc()
+                    reg.counter("tier_prefetch_admissions_total").inc()
+            if admitted:
+                self._tier_enforce(pack)
+        return admitted
+
+    def _checkpoint_if_attached(self) -> None:
+        """Durably checkpoint after a segment-list transition (no-op
+        without persistence; deferred during a bulk ingest, which
+        checkpoints once at the batch boundary)."""
+        if self.persist is not None and not self._suspend_ckpt:
+            self.persist.checkpoint(self)
 
     def shard_pack(self, epoch: int, segments: List[SealedSegment]):
         """The consistent shard-pack read state for ``(epoch, segments)``:
@@ -461,11 +722,15 @@ class SegmentManager:
         if not sources:
             return None
         if self.cfg.incremental_pack:
+            # under a tier budget the cold build stays in host memory;
+            # _tier_warm_admit then uploads only what fits, most recent
+            # span first
             pack = build_bucketed_pack(
                 sources, self.cfg.n_shards, epoch,
                 cap_multiple=self.cfg.pack_cap_multiple,
                 quantize=self.cfg.quantize, metrics=self.obs.registry,
-                graph_degree=self.graph_degree, device=self.device)
+                graph_degree=self.graph_degree, device=self.device,
+                resident_default=self.tier is None)
         else:
             pack = build_shard_pack(sources, self.cfg.n_shards, epoch,
                                     cap_multiple=self.cfg.pack_cap_multiple,
@@ -474,6 +739,8 @@ class SegmentManager:
             pack.sync_alive(self.alive)
             if self.epoch == epoch:
                 self._pack = pack
+                if self.tier is not None and hasattr(pack, "admit_bucket"):
+                    self._tier_warm_admit(pack)
                 self._update_pack_gauges(pack)
             return _read_state(pack)
 
@@ -498,7 +765,8 @@ class SegmentManager:
                     expired.append(seg)
                 else:
                     kept.append(seg)
-            if len(kept) != len(self.segments):
+            list_changed = len(kept) != len(self.segments)
+            if list_changed:
                 self.segments = kept
                 self.epoch += 1
                 self._apply_pack_delta(expired, ())
@@ -509,6 +777,10 @@ class SegmentManager:
             reg.counter("lifecycle_expired_segments_total").inc(len(expired))
             reg.counter("lifecycle_expired_points_total").inc(
                 dropped + len(gl))
+            # dropping an all-dead segment flips no liveness bit but still
+            # changes the list, which must reach the manifest
+            if list_changed or dropped or len(gl):
+                self._checkpoint_if_attached()
         return dropped + len(gl)
 
     # ------------------------------------------------------------------
@@ -555,6 +827,12 @@ class SegmentManager:
             built.append(([seg], seg.compacted(quantize=self.cfg.quantize)))
         for grp in plan.merges:
             built.append((grp, self._merge_group(grp)))
+        if self.persist is not None:
+            # stage the replacements' artifacts here, lock-free, so the
+            # publish checkpoint only swaps state and manifest
+            for _, new_seg in built:
+                if new_seg is not None:
+                    self.persist.stage_segment(new_seg)
         self.obs.registry.counter("compaction_executed_ops_total").inc(
             plan.n_ops)
         self.obs.registry.histogram("compaction_execute_ms").observe(
@@ -586,7 +864,8 @@ class SegmentManager:
                     out.append(new_seg)
                 ops += 1 if len(victims) == 1 else len(victims) - 1
             out = [g for g in out if g.n_live > 0]
-            if ops > 0 or len(out) != len(self.segments):
+            changed = ops > 0 or len(out) != len(self.segments)
+            if changed:
                 pre_ids = {id(g): g for g in self.segments}
                 post_ids = {id(g) for g in out}
                 out.sort(key=lambda g: g.t_min)
@@ -602,6 +881,8 @@ class SegmentManager:
                 self.counters["compactions"] += 1
                 self.obs.registry.counter(
                     "compaction_published_ops_total").inc(ops)
+            if changed:
+                self._checkpoint_if_attached()
         self._warm_pack()
         return ops
 
@@ -677,6 +958,53 @@ class SegmentManager:
                 "compaction_ops": compactions, "store_gc_points": freed}
 
     # ------------------------------------------------------------------
+    # Durability (WAL + manifest snapshots live in streaming/persistence.py)
+    # ------------------------------------------------------------------
+    def snapshot_to(self, directory: str) -> dict:
+        """Write a complete, self-consistent snapshot of this manager to
+        ``directory`` (segment artifacts + state + atomic manifest, the JAX
+        package's format) and return the manifest dict.
+
+        Segment artifacts are immutable, so they are staged without the
+        lock first; only the state + manifest capture runs under the lock,
+        which serializes it against ingest, deletes and a racing
+        ``compact_async`` publish.  When ``directory`` is this manager's
+        own ``persist_dir`` the attached persistence checkpoints; any
+        other directory gets a standalone export."""
+        from .persistence import StreamPersistence
+        if self.persist is not None and os.path.abspath(directory) \
+                == os.path.abspath(self.persist.root):
+            p, owned = self.persist, False
+        else:
+            p = StreamPersistence(directory, self.cfg.wal_fsync_every)
+            owned = True
+        with self._lock:
+            segments = list(self.segments)
+        for seg in segments:         # lock-free: artifact content is frozen
+            p.stage_segment(seg)
+        try:
+            with self._lock:
+                return p.checkpoint(self)
+        finally:
+            if owned:
+                p.close()
+
+    @classmethod
+    def restore(cls, directory: str, cfg: Optional[StreamConfig] = None,
+                device=None, resume: bool = True,
+                mmap_segments: Optional[bool] = None) -> "SegmentManager":
+        """Rebuild a manager on ``device`` (default: the card) from a
+        snapshot directory written by either package: last published
+        manifest + mmapped segment artifacts + WAL-tail replay.  The
+        result answers queries bit-for-bit like the snapshotted manager
+        (see ``streaming.persistence.restore_manager``).  ``resume``
+        re-attaches persistence to ``directory``; ``cfg`` overrides the
+        persisted config (e.g. a ``device_budget_bytes``)."""
+        from .persistence import restore_manager
+        return restore_manager(directory, cfg=cfg, device=device,
+                               resume=resume, mmap_segments=mmap_segments)
+
+    # ------------------------------------------------------------------
     # Read path (fan-out lives in streaming/query.py)
     # ------------------------------------------------------------------
     def snapshot(self):
@@ -729,7 +1057,12 @@ class SegmentManager:
                 "epoch": self.epoch,
                 "n_shards": self.cfg.n_shards,
                 "quantize": self.cfg.quantize,
-                "tier": None,
+                "tier": (None if self.tier is None else {
+                    "budget_bytes": self.tier.budget_bytes,
+                    "resident_bytes": 0 if pack is None else int(pack.nbytes),
+                    "host_bytes": (0 if pack is None else
+                                   int(getattr(pack, "host_nbytes", 0))),
+                }),
                 "store_resident_points": self.store.resident_points,
                 "store_nbytes": self.store.nbytes,
                 "health": self.supervisor.health(),

@@ -11,11 +11,15 @@ The sealed-segment read path has three per-bucket modes:
   i.e. near-logarithmic in bucket points, but approximate and wasteful
   when the filter is so selective that routing mostly burns hops on
   φ-failing points.
-* **host_scan** — the tiered-storage cold path: a host-resident bucket
-  streams through the same fused kernel per dispatch.  Tiering is not
-  ported yet (ROADMAP Queue A item 9), so every bucket of the port is
-  resident and this mode is never chosen; the decision logic stays the
-  reference's so both packages plan alike.
+* **host_scan** — the tiered-storage cold path (``streaming/tiering.py``):
+  the bucket's block lives in page-locked host memory (evicted under
+  ``StreamConfig.device_budget_bytes``) and is copied to the card for each
+  dispatch of the same fused kernel — exact, but every dispatch pays the
+  transfer.  The planner prices it against "admit the block first, then
+  scan / traverse it resident" (``admit_cost_per_byte``), so a repeatedly
+  hit cold bucket is admitted instead of streamed again.  The views feed
+  it ``resident`` and ``stage_bytes``; the decision logic is the
+  reference's, so both packages plan alike.
 
 This module picks the mode *per bucket per dispatch* from the rolling
 :class:`~repro_torch.obs.metrics.BucketStats` snapshot plus the bucket's

@@ -30,6 +30,13 @@ unpruned segment in the bucket.  fp32 graph blocks carry exact distances
 and join the merge directly; quantized graph blocks go through the same
 exact fp32 rerank.
 
+With ``StreamConfig(device_budget_bytes=...)`` some buckets are cold
+(their blocks in page-locked host memory): each query feeds its time
+window to the tier's prefetch predictor, every cold dispatch counts one
+``tier_miss_total``, buckets the planner prices ``admit_cheaper`` are
+admitted for this very query, and a deadline refuses cold modes it cannot
+pay for (mode ``skip``, a degraded answer).
+
 The grouped (continuous batching) entry point of the reference is not
 ported yet (ROADMAP Queue A item 11).
 """
@@ -90,13 +97,17 @@ def _alive_filter(manager, gids: np.ndarray, dists: np.ndarray
     return gids, dists
 
 
-def _plan_pack(manager, pack, filt, rp, t_lo, t_hi, obs, registry):
+def _plan_pack(manager, pack, filt, rp, t_lo, t_hi, obs, registry,
+               deadline=None):
     """Run the cost planner over one ``PackView`` dispatch.
 
     Returns ``(plan, graph_caps)`` where ``graph_caps`` is the set of bucket
     capacities routed to the stitched traversal this dispatch.  Records
     the plan on ``manager.last_plan`` and bumps the
-    ``planner_decision_total{mode=...}`` counters — one per bucket.
+    ``planner_decision_total{mode=...}`` counters — one per bucket.  With
+    a running ``deadline`` the remaining budget (in cost units, via
+    ``PlannerCosts.cost_per_ms``) gates the cold modes: a ``host_scan`` /
+    ``admit_cheaper`` it cannot cover becomes mode ``"skip"``.
     """
     from ..kernels.ops import encode_filter
     from .planner import PlannerCosts, plan_read_paths
@@ -106,8 +117,11 @@ def _plan_pack(manager, pack, filt, rp, t_lo, t_hi, obs, registry):
     # the traversal kernel reads the same packed predicate as the scan
     # kernels: a filter without an encoding forces scan everywhere
     graph_ok = encode_filter(filt, pack.m) is not None
+    deadline_cost = (None if deadline is None else
+                     max(deadline.remaining_ms(), 0.0) * costs.cost_per_ms)
     plan = plan_read_paths(pack, rp, snap, costs, t_lo, t_hi,
-                           graph_allowed=graph_ok)
+                           graph_allowed=graph_ok,
+                           deadline_cost=deadline_cost)
     manager.last_plan = plan
     for dec in plan.values():
         registry.counter(
@@ -118,9 +132,11 @@ def _plan_pack(manager, pack, filt, rp, t_lo, t_hi, obs, registry):
 
 
 def _scan_buckets(manager, pack, queries, filt, k, t_lo, t_hi, metric,
-                  trace, observe):
+                  trace, observe, on_cold=None):
     """Scan a ``PackView``: exact blocks for fp32 buckets, one reranked
-    block for quantized ones.  Returns ``(blocks_g, blocks_d)``."""
+    block for quantized ones; cold buckets stream through the same
+    kernels (``on_cold`` counts them).  Returns ``(blocks_g,
+    blocks_d)``."""
     from ..distributed.segment_shards import pack_search, pack_search_blocks
     if not pack.buckets:
         return [], []
@@ -130,16 +146,18 @@ def _scan_buckets(manager, pack, queries, filt, k, t_lo, t_hi, metric,
         gg, dd = pack_search(pack, queries, filt, k, t_lo=t_lo, t_hi=t_hi,
                              metric=metric, lookup=manager.get_points,
                              rerank_multiple=manager.cfg.rerank_multiple,
-                             trace=trace, observe=observe)
+                             trace=trace, observe=observe, on_cold=on_cold)
         return [gg], [dd]
     out = pack_search_blocks(pack, queries, filt, k, t_lo=t_lo, t_hi=t_hi,
-                             metric=metric, trace=trace, observe=observe)
+                             metric=metric, trace=trace, observe=observe,
+                             on_cold=on_cold)
     return [g for g, _ in out], [d for _, d in out]
 
 
 def _graph_search_blocks(manager, pack, buckets, queries, filt, k,
                          t_lo, t_hi, metric, trace, registry,
-                         observe=None, deadline=None, degrade=None):
+                         observe=None, on_cold=None, deadline=None,
+                         degrade=None):
     """Stitched-traversal dispatch for the buckets the planner sent to
     ``graph`` mode.
 
@@ -147,13 +165,16 @@ def _graph_search_blocks(manager, pack, buckets, queries, filt, k,
     yield over-fetched candidate blocks that are reranked exactly at fp32
     (union across graph buckets — gids are disjoint) before joining the
     merge.  A bucket whose traversal is unavailable after all falls back
-    to the ordinary scan for that bucket alone, feeding ``observe`` like
-    the main scan path.  With a running ``deadline`` the budget is checked
+    to the ordinary scan for that bucket alone, feeding ``observe`` and
+    ``on_cold`` like the main scan path.  A cold bucket (forced graph) is
+    copied to the device for its traversal (``stage_bucket``), so B4 reads
+    the bytes it would read resident.  With a running ``deadline`` the
+    budget is checked
     before each bucket's traversal; once spent, the remaining buckets are
     skipped and reported through ``degrade("deadline_graph", n)``.
     Returns ``(blocks_g, blocks_d)``.
     """
-    from ..distributed.segment_shards import bucket_graph_seeds
+    from ..distributed.segment_shards import bucket_graph_seeds, stage_bucket
     from ..kernels.graph_topk import bucket_graph_topk
     cfg = manager.cfg
     quantized = pack.quantize is not None
@@ -169,13 +190,13 @@ def _graph_search_blocks(manager, pack, buckets, queries, filt, k,
         seeds = bucket_graph_seeds(bv, t_lo, t_hi)
         with trace.span("bucket_graph", cap=bv.cap, seeds=int(len(seeds))):
             out = bucket_graph_topk(
-                queries, bv, seeds, filt, kk, m=pack.m, metric=metric,
-                ef=max(cfg.graph_ef, kk), width=cfg.graph_width,
-                max_iters=cfg.graph_max_iters)
+                queries, stage_bucket(bv, pack.device), seeds, filt, kk,
+                m=pack.m, metric=metric, ef=max(cfg.graph_ef, kk),
+                width=cfg.graph_width, max_iters=cfg.graph_max_iters)
         if out is None:                       # planner gate raced/failed
             sub = dataclasses.replace(pack, buckets=(bv,))
             gg, dd = _scan_buckets(manager, sub, queries, filt, k, t_lo,
-                                   t_hi, metric, trace, observe)
+                                   t_hi, metric, trace, observe, on_cold)
             blocks_g.extend(gg)
             blocks_d.extend(dd)
             continue
@@ -286,21 +307,56 @@ def query_segments(manager, queries: np.ndarray, filt: Optional[Filter],
         # racing delete — nothing sealed to search
         pack = manager.shard_pack(epoch, live_segs)
         dt_ms = 0.0
+        tier = getattr(manager, "tier", None)
+        on_cold = None
         if pack is not None:
             # cost-based routing: with read_path != "scan" the planner
             # splits the buckets into a scan subset (the exact same calls
             # as forced scan) and a graph subset (stitched traversal)
             scan_pack = pack
             graph_bvs: tuple = ()
+            if tier is not None and isinstance(pack, PackView):
+                # feed the window's drift to the prefetch predictor and
+                # count cold (streamed) dispatches as tier misses
+                tier.note_window(t_lo, t_hi)
+
+                def on_cold(cap, stage_bytes, _reg=registry):
+                    _reg.counter("tier_miss_total").inc()
             if isinstance(pack, PackView) and rp != "scan":
-                _, graph_caps = _plan_pack(manager, pack, filt, rp, t_lo,
-                                           t_hi, obs, registry)
-                if graph_caps:
+                plan, graph_caps = _plan_pack(manager, pack, filt, rp, t_lo,
+                                              t_hi, obs, registry,
+                                              deadline=deadline)
+                # deadline-refused buckets: every cold route costs more
+                # than the budget left — omit them, answer degraded
+                skip_caps = frozenset(c for c, dec in plan.items()
+                                      if dec.mode == "skip")
+                if skip_caps:
+                    _degrade("deadline_planner", len(skip_caps))
+                if tier is not None:
+                    # the planner priced re-admission below streaming:
+                    # admit now and dispatch the resident block in this
+                    # very query (tier_admit returns None — keep the exact
+                    # cold view — when the block no longer fits or the
+                    # pack moved past this query's epoch)
+                    admitted = {}
+                    for cap, dec in plan.items():
+                        if dec.reason == "admit_cheaper":
+                            nbv = manager.tier_admit(cap,
+                                                     expect_epoch=epoch)
+                            if nbv is not None:
+                                admitted[cap] = nbv
+                    if admitted:
+                        pack = dataclasses.replace(
+                            pack, buckets=tuple(admitted.get(bv.cap, bv)
+                                                for bv in pack.buckets))
+                        scan_pack = pack
+                drop = graph_caps | skip_caps
+                if drop:
                     graph_bvs = tuple(bv for bv in pack.buckets
                                       if bv.cap in graph_caps)
                     scan_pack = dataclasses.replace(
                         pack, buckets=tuple(bv for bv in pack.buckets
-                                            if bv.cap not in graph_caps))
+                                            if bv.cap not in drop))
             with trace.span("sealed_scan",
                             quantized=getattr(pack, "quantize", None)
                             is not None):
@@ -320,13 +376,13 @@ def query_segments(manager, queries: np.ndarray, filt: Optional[Filter],
                         sub = dataclasses.replace(scan_pack, buckets=(bv,))
                         gg, dd = _scan_buckets(manager, sub, queries, filt,
                                                k, t_lo, t_hi, metric, trace,
-                                               observe)
+                                               observe, on_cold)
                         blocks_g.extend(gg)
                         blocks_d.extend(dd)
                 elif isinstance(pack, PackView):
                     gg, dd = _scan_buckets(manager, scan_pack, queries, filt,
                                            k, t_lo, t_hi, metric, trace,
-                                           observe)
+                                           observe, on_cold)
                     blocks_g.extend(gg)
                     blocks_d.extend(dd)
                 else:                     # monolithic pack
@@ -339,11 +395,15 @@ def query_segments(manager, queries: np.ndarray, filt: Optional[Filter],
                     gb_g, gb_d = _graph_search_blocks(
                         manager, pack, graph_bvs, queries, filt, k,
                         t_lo, t_hi, metric, trace, registry,
-                        observe=observe, deadline=deadline,
+                        observe=observe, on_cold=on_cold, deadline=deadline,
                         degrade=_degrade)
                     blocks_g.extend(gb_g)
                     blocks_d.extend(gb_d)
                 dt_ms = (time.perf_counter() - t0) * 1e3
+            if tier is not None:
+                # stage buckets the window's drift is about to reach, off
+                # the query path (a supervised thread, at most one)
+                manager.maybe_prefetch()
         for seg in segments:
             st = seg.stats()
             if pack is None or seg.n_live == 0 \

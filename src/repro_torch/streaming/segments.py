@@ -353,8 +353,13 @@ class SealedSegment:
         self.gids = np.asarray(gids, np.int64)
         self.time_dim = int(time_dim)
         # int8 codec payload (repro_torch.quant.SegmentQuant, rows parallel
-        # to index.x) — fit exactly once, at seal or compaction-publish
+        # to index.x) — fit exactly once, at seal or compaction-publish,
+        # and round-tripped through segment artifacts
         self.quant = quant
+        # durable-artifact bookkeeping: persistence root -> artifact dir
+        # name, filled in by streaming.persistence when this segment is
+        # written to (or restored from) a snapshot directory
+        self.artifacts: Dict[str, str] = {}
         t = self.index.s_np[:, time_dim]
         self.t_min = float(t.min()) if len(t) else np.inf
         self.t_max = float(t.max()) if len(t) else -np.inf

@@ -451,6 +451,146 @@ def test_sharded_pack_invariants_on_card(card, quantize):
         assert np.array_equal(di, dm)
 
 
+def _card_pack(card, quantize, rng, n_segs=4, d=64):
+    from repro_torch.distributed import segment_shards as tss
+    srcs, gid0 = [], 0
+    for sid in range(n_segs):
+        n = int(rng.integers(300, 900))
+        x = rng.normal(size=(n, d)).astype(np.float32)
+        s = rng.uniform(size=(n, 3))
+        srcs.append(tss.SegmentShardSource(
+            sid, x, s, np.arange(gid0, gid0 + n, dtype=np.int64),
+            float(s[:, 2].min()), float(s[:, 2].max())))
+        gid0 += n
+    return tss.build_bucketed_pack(srcs, 2, quantize=quantize, device=card)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_scan_kernels_deterministic_whatever_passes(card, quantize):
+    """B1 / B3 at a fixed shape: a candidate's distance does not depend on
+    which other candidates pass the filter (pass 1 packs only passing
+    candidates, so the packing order changes) nor on the launch — the
+    property cold dispatches rely on to answer bit for bit."""
+    from repro_torch.distributed import segment_shards as tss
+    pack = _card_pack(card, quantize, np.random.default_rng(3))
+    q = np.random.default_rng(4).normal(size=(24, 64)).astype(np.float32)
+    seen = {}
+    for filt in (None, _FILTERS["box"], _FILTERS["box_not_ball"],
+                 _FILTERS["box"]):
+        for bv in pack.view().buckets:
+            if quantize:
+                ids, dd = ops.sharded_quant_filtered_topk(
+                    torch.as_tensor(q, device=card), bv.codes, bv.s, bv.xsq,
+                    bv.scales, filt, 64)
+            else:
+                ids, dd = ops.sharded_filtered_topk(
+                    torch.as_tensor(q, device=card), bv.x, bv.s, filt, 64)
+            g = torch.gather(bv.gids.long(), 1,
+                             ids.long().clamp_min(0).reshape(
+                                 ids.shape[0], -1)).reshape(ids.shape)
+            g, d = g.cpu().numpy(), dd.cpu().numpy()
+            row = np.broadcast_to(np.arange(24)[None, :, None], g.shape)
+            ok = (ids.cpu().numpy() >= 0) & np.isfinite(d)
+            for key, val in zip(zip(row[ok].tolist(), g[ok].tolist()),
+                                d[ok].tolist()):
+                assert seen.setdefault(key, val) == val, key
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_cold_bucket_answers_equal_resident_on_card(card, quantize):
+    """Every bucket evicted to page-locked host memory: the cold dispatch
+    copies each block to the card and launches B1 (fp32) or B3 (int8),
+    and the answers equal the resident ones bit for bit."""
+    import importlib
+    from repro_torch.distributed import segment_shards as tss
+    mod = importlib.import_module("repro_torch.kernels." + (
+        "quant_topk" if quantize else "filtered_topk"))
+    rng = np.random.default_rng(5)
+    pack = _card_pack(card, quantize, rng)
+    q = rng.normal(size=(16, 64)).astype(np.float32)
+    for filt in (None, _FILTERS["box"]):
+        hot = tss.pack_search_blocks(pack.view(), q, filt, 40)
+        for cap in list(pack.buckets):
+            pack.evict_bucket(cap)
+        assert pack.nbytes == 0 and pack.host_nbytes > 0
+        view = pack.view()
+        assert all(not bv.resident and bv.s.is_pinned()
+                   for bv in view.buckets)
+        before = mod.launch_count()
+        cold = tss.pack_search_blocks(view, q, filt, 40)
+        assert mod.launch_count() - before == len(view.buckets)
+        for (ga, da), (gb, db) in zip(hot, cold):
+            assert np.array_equal(ga, gb) and np.array_equal(da, db)
+        for cap in list(pack.buckets):
+            assert pack.admit_bucket(cap) > 0
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_side_stream_admission_on_card(card, quantize):
+    """An admission uploaded on the side stream (an event at its end) and
+    installed under the lock: the consuming stream waits on the event and
+    the resident answers come back unchanged."""
+    from repro_torch.distributed import segment_shards as tss
+    rng = np.random.default_rng(6)
+    pack = _card_pack(card, quantize, rng)
+    q = rng.normal(size=(16, 64)).astype(np.float32)
+    hot = tss.pack_search_blocks(pack.view(), q, _FILTERS["box"], 40)
+    caps = list(pack.buckets)
+    for cap in caps:
+        pack.evict_bucket(cap)
+    ups = [(cap, pack.upload_admission(pack.stage_admission(cap)))
+           for cap in caps]
+    for cap, (gen, up) in ups:
+        assert up.event is not None
+        assert all(t.device.type == "cuda" for t in up.blk.values())
+        assert pack.install_admission(cap, gen, up) > 0
+        assert pack.buckets[cap].resident
+    again = tss.pack_search_blocks(pack.view(), q, _FILTERS["box"], 40)
+    for (ga, da), (gb, db) in zip(hot, again):
+        assert np.array_equal(ga, gb) and np.array_equal(da, db)
+
+
+def test_restore_onto_card_equals_original(card, tmp_path):
+    """A manager snapshotted and restored onto the card answers every read
+    path bit for bit like the original, under a budget too."""
+    import dataclasses
+    from repro_torch.core import CubeGraphConfig
+    from repro_torch.streaming import SegmentManager, StreamConfig
+    rng = np.random.default_rng(7)
+    for quantize in (None, "int8"):
+        cfg = StreamConfig(time_dim=2, seal_max_points=400, n_shards=2,
+                           read_path="auto", quantize=quantize,
+                           index_cfg=CubeGraphConfig(n_layers=2, m_intra=8,
+                                                     m_cross=2))
+        mgr = SegmentManager(32, 3, cfg, device=card)
+        x = rng.normal(size=(2000, 32)).astype(np.float32)
+        s = rng.uniform(size=(2000, 3))
+        s[:, 2] = np.arange(2000) / 2000
+        mgr.ingest(x, s)
+        mgr.delete(rng.integers(0, 2000, 100))
+        snap = str(tmp_path / f"snap-{quantize}")
+        mgr.snapshot_to(snap)
+        q = rng.normal(size=(32, 32)).astype(np.float32)
+        base = mgr.query(q, _FILTERS["box"], k=10, read_path="scan")
+        budget = max(mgr.stats()["pack_nbytes"] // 3, 1)
+        for over in ({}, {"device_budget_bytes": budget}):
+            r = SegmentManager.restore(
+                snap, cfg=dataclasses.replace(cfg, **over), device=card,
+                resume=False)
+            assert r.device == card
+            for rp in ("scan", "graph", "auto"):
+                ga, da = mgr.query(q, _FILTERS["box"], k=10, read_path=rp)
+                gb, db = r.query(q, _FILTERS["box"], k=10, read_path=rp)
+                if over and rp == "auto":
+                    continue            # residency may change the plan
+                assert np.array_equal(ga, gb) and np.array_equal(da, db)
+            if over:
+                gb, db = r.query(q, _FILTERS["box"], k=10, read_path="scan")
+                assert np.array_equal(base[0], gb)
+                assert np.array_equal(base[1], db)
+                assert r.stats()["tier"]["resident_bytes"] <= budget
+
+
 # ---------------------------------------------------------------------------
 # Kernel B5: decode attention
 # ---------------------------------------------------------------------------

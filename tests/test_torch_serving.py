@@ -260,17 +260,26 @@ def test_streaming_store_matches_reference(rag):
 
 @pytest.mark.parametrize("what", ["restore", "snapshot_to", "budget",
                                   "grouped"])
-def test_unported_store_features_raise(rag, what):
+def test_unported_store_features_raise(rag, what, tmp_path):
+    """Grouped retrieval (item 11) still raises naming its item; restore,
+    snapshot_to and device_budget_bytes (items 8, 9) are ported and raise
+    only on misuse, as in the reference."""
     docs = rag["store"].docs[:50]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
-        if what == "restore":
-            DocumentStore.restore(docs, "/nonexistent")
-        elif what == "budget":
-            DocumentStore(docs, streaming=True, device_budget_bytes=1 << 20,
-                          device="cpu")
-        elif what == "snapshot_to":
-            rag["store"].snapshot_to("/nonexistent")
-        else:
+    if what == "restore":
+        with pytest.raises(FileNotFoundError):
+            DocumentStore.restore(docs, str(tmp_path / "none"),
+                                  device="cpu")
+    elif what == "budget":
+        store = DocumentStore(docs, streaming=True,
+                              device_budget_bytes=1 << 20, device="cpu")
+        assert store.manager.tier.budget_bytes == 1 << 20
+        assert store.manager.cfg.n_shards >= 1
+    elif what == "snapshot_to":
+        with pytest.raises(ValueError, match="streaming store"):
+            rag["store"].snapshot_to(str(tmp_path / "snap"))
+    else:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue A item 11"):
             rag["store"].retrieve_grouped([])
 
 
