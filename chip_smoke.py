@@ -17,6 +17,9 @@ checks the answers against exact ground truth.  The sharded managers are
 then snapshotted, restored on the card and held bit for bit to their
 answers, and restored again under a device budget that leaves buckets
 in pinned host memory (cold dispatches, admissions on a side stream).
+Phase 5d drives a persistent, budgeted manager (fp32 and int8) through a
+lifecycle tape under seeded crashes at the fault points and holds every
+recovered answer bit for bit to a fault-free oracle.
 It times each of those kernels beside its twin, its roofline bound and
 one PyTorch library call computing the same function.  Then it frees those phases' tensors and
 drives the generation side at the full width of ``internvl2-2b`` in bf16
@@ -24,7 +27,11 @@ drives the generation side at the full width of ``internvl2-2b`` in bf16
 run, decode checked against a full forward, and ``RAGPipeline.answer``
 over a static ``DocumentStore``; the decode kernel (B5) is held against
 its twin on the inputs one layer of a recorded batcher tick handed it,
-and timed there.
+and timed there.  Last (phase 8) it serves a geo-temporal workload of 4
+tenants over one shared substrate through ``CubeGraphService`` (kernel
+B1's grouped launch), checks isolation, recall and a recorded flush
+answered grouped against the same requests answered solo, bit for bit,
+and times the grouped launch on that flush.
 
 The last three lines of standard output are the card's name and power
 limit (from ``nvidia-smi``), a JSON object describing every kernel, and
@@ -68,6 +75,18 @@ BASELINE_BUILD_S = 180.0
 BASELINE_EF = 64
 NAV_EF, NAV_RECALL = 256, 0.95
 SEED = 0
+# Resilience (5d): a persistent manager of CHAOS_N points at width D, fp32
+# and int8, under seeded crashes; its queries carry CHAOS_DEADLINE_MS (met
+# with room to spare, so the per-bucket deadline path runs exactly).
+CHAOS_N = 20_000
+CHAOS_QUERIES = 64
+CHAOS_DEADLINE_MS = 60_000.0
+# The serving tier (8): GeoTemporalWorkload at width D, 4 tenants of
+# 25,000 points (100,000 as phase 5b), not cut.
+SERVE = dict(n_tenants=4, d_emb=D, n_initial=25_000, seal_max_points=4096,
+             n_shards=2, warmup_steps=2, n_steps=8, queries_per_step=64,
+             k=10, burst_every=2, burst_points=1024, deletes_per_step=32,
+             deadline_ms=250.0, deadline_fraction=0.5, slo_ms=250.0)
 
 # Generation phase (7): the full width of ARCH, never cut.  N_RAG is cut
 # from phase 4's 100,000 (the index build is O(n^2) and phase 4 covers
@@ -396,6 +415,57 @@ def phase_kernels_sharded(torch, dev, x, s, q, filters, errs) -> None:
     log(f"B4 vs twin: fp32 and int8 blocks x 5 kinds x 2 metrics x dense "
         f"and sparse lanes, b={b} c={c} d={d} agree; max |err| "
         f"{errs['graph_step']:.3g}")
+
+
+def phase_kernels_grouped(torch, dev, seed: int, errs: dict) -> None:
+    """B1's grouped launch against its twin at ragged shapes (d = 130 and
+    768, uneven shard rows, box and ball classes, both metrics), and
+    bit for bit against the same groups launched solo at a row count where
+    the grouped launch picks other candidate splits than the solo one."""
+    import numpy as np
+    from repro_torch.core import BallFilter
+    from repro_torch.core.workloads import make_box_filter, make_dataset_device
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.filtered_topk import (
+        filtered_topk_call, filtered_topk_grouped_call,
+        filtered_topk_grouped_plain, launch_config)
+    for d, n, G, bq in ((130, 1500, 3, 19), (D, 20_000, 4, 200)):
+        x, s = make_dataset_device(2 * n, d, 3, seed=seed + d, device=dev)
+        xs, ss = x.reshape(2, n, d), s.reshape(2, n, 3)
+        q = x[:G * bq].reshape(G, bq, d) + 0.05
+        for kind, fs, kpad in (
+                ("box", [make_box_filter(3, 0.1 + 0.2 * i, seed=i)
+                         for i in range(G)], 16),
+                ("ball", [BallFilter(center=np.asarray([0.5, 0.5]),
+                                     radius=0.1 + 0.1 * i)
+                          for i in range(G)], 32)):
+            p = torch.stack([torch.as_tensor(
+                ops.encode_filter(f, 3, mpad=3)[1], device=dev)
+                for f in fs])
+            for metric in ("l2", "ip"):
+                kd, ki = filtered_topk_grouped_call(q, xs, ss, p, kind, kpad,
+                                                    metric)
+                torch.cuda.synchronize()
+                td, ti = filtered_topk_grouped_plain(q, xs, ss, p, kind,
+                                                     kpad, metric)
+                for g in range(G):
+                    errs["filtered_topk"] = max(
+                        errs["filtered_topk"], compare_topk(
+                            torch, kd[g], ki[g], td[g], ti[g],
+                            row_scale(torch, q[g], x),
+                            f"B1 grouped {kind}/{metric} d={d} group {g}"))
+                    sd, si = filtered_topk_call(q[g][None], xs, ss,
+                                                p[g][None], kind, kpad,
+                                                metric)
+                    check(bool(torch.equal(kd[g], sd)
+                               and torch.equal(ki[g], si)),
+                          f"B1 grouped {kind}/{metric} d={d}: group {g} "
+                          f"differs from its solo launch")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        sp = [launch_config(g, bq, n, d, 16, 0, 0, sms)["splits"]
+              for g in (2, 2 * G)]
+        log(f"B1 grouped d={d}: {G} groups x 2 shard rows x {n}: splits "
+            f"{sp[1]} grouped, {sp[0]} solo; == solo bit for bit")
 
 
 def main_scan(torch, dev, n: int, d: int, nq: int, seed: int, errs: dict,
@@ -838,42 +908,48 @@ def main_sharded(torch, dev, n: int, d: int, nq: int, seed: int,
         gt = gt.cpu().numpy()
         truth[fname] = np.where(gt >= 0, live[np.maximum(gt, 0)], -1)
     tiles_5b = [0, 0]        # B1's computed and all candidate tiles
-    for name, mgr in managers.items():
-        for fname, f in filters.items():
-            for rp in ("scan", "graph", "auto"):
-                before = {kn: mod.launch_count() for kn, mod in mods.items()}
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                base = torch.cuda.memory_allocated()
-                with B1Tiles() as b1_tiles:
-                    t0 = time.perf_counter()
-                    gids, dd = mgr.query(q, f, k=k, read_path=rp)
+    with B4Split() as b4split:
+        for name, mgr in managers.items():
+            for fname, f in filters.items():
+                for rp in ("scan", "graph", "auto"):
+                    before = {kn: mod.launch_count() for kn, mod in mods.items()}
                     torch.cuda.synchronize()
-                    dt = time.perf_counter() - t0
-                live_t, all_t = b1_tiles.take()
-                tiles_5b[0] += live_t
-                tiles_5b[1] += all_t
-                # the query's own working memory (visited bitmaps, beams,
-                # kernel outputs)
-                work = (torch.cuda.max_memory_allocated() - base) / 2**30
-                used = {kn: mod.launch_count() - before[kn]
-                        for kn, mod in mods.items()}
-                check(gids.shape == (nq, k) and dd.shape == (nq, k),
-                      f"sharded {name}/{fname}/{rp}: shape {gids.shape}")
-                check(not bool(np.isin(gids[gids >= 0], dead).any()),
-                      f"sharded {name}/{fname}/{rp}: a deleted point")
-                r = recall(gids, truth[fname])
-                plan = ({c: p.mode for c, p in mgr.last_plan.items()}
-                        if rp != "scan" and mgr.last_plan else {})
-                b1_share = (f", B1 computes {live_t} of {all_t} candidate "
-                            f"tiles ({live_t / all_t:.4f})" if all_t else "")
-                log(f"sharded[{name}] {fname} read_path={rp}: recall@10 "
-                    f"{r:.4f}, {nq / dt:.0f} QPS (host clock), query "
-                    f"working memory {work:.3f} GiB, launches {used}, "
-                    f"plan {plan}{b1_share}")
-                floor = 0.999 if (name, rp) == ("fp32", "scan") else 0.8
-                check(r >= floor, f"sharded {name}/{fname}/{rp}: recall "
-                      f"{r:.4f} < {floor}")
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    with B1Tiles() as b1_tiles:
+                        t0 = time.perf_counter()
+                        gids, dd = mgr.query(q, f, k=k, read_path=rp)
+                        torch.cuda.synchronize()
+                        dt = time.perf_counter() - t0
+                    live_t, all_t = b1_tiles.take()
+                    tiles_5b[0] += live_t
+                    tiles_5b[1] += all_t
+                    # the query's own working memory (visited bitmaps, beams,
+                    # kernel outputs)
+                    work = (torch.cuda.max_memory_allocated() - base) / 2**30
+                    used = {kn: mod.launch_count() - before[kn]
+                            for kn, mod in mods.items()}
+                    check(gids.shape == (nq, k) and dd.shape == (nq, k),
+                          f"sharded {name}/{fname}/{rp}: shape {gids.shape}")
+                    check(not bool(np.isin(gids[gids >= 0], dead).any()),
+                          f"sharded {name}/{fname}/{rp}: a deleted point")
+                    r = recall(gids, truth[fname])
+                    plan = ({c: p.mode for c, p in mgr.last_plan.items()}
+                            if rp != "scan" and mgr.last_plan else {})
+                    b1_share = (f", B1 computes {live_t} of {all_t} candidate "
+                                f"tiles ({live_t / all_t:.4f})" if all_t else "")
+                    log(f"sharded[{name}] {fname} read_path={rp}: recall@10 "
+                        f"{r:.4f}, {nq / dt:.0f} QPS (host clock), query "
+                        f"working memory {work:.3f} GiB, launches {used}, "
+                        f"plan {plan}{b1_share}")
+                    floor = 0.999 if (name, rp) == ("fp32", "scan") else 0.8
+                    check(r >= floor, f"sharded {name}/{fname}/{rp}: recall "
+                          f"{r:.4f} < {floor}")
+    # the int8 exact rerank also launches B4: the traversal's own launches
+    # show that the graph read path ran
+    log(f"sharded phase: B4 launches by the traversals "
+        f"{b4split.traversal}, by the int8 rerank {b4split.other}")
+    check(b4split.traversal >= 1, "no graph traversal launched B4 in 5b")
     launches = {kn: mod.launch_count() for kn, mod in mods.items()}
     log(f"sharded phase launches: {launches}")
     for kn, c in launches.items():
@@ -888,6 +964,37 @@ def main_sharded(torch, dev, n: int, d: int, nq: int, seed: int,
                 sharded_filter=filters["box_and_interval"],
                 b1_live_share_5b=tiles_5b[0] / max(tiles_5b[1], 1))
     return launches
+
+
+class B4Split:
+    """While active, counts B4 launches made by a graph traversal (each
+    follows the traversal's ``_unique_mask`` of that hop's lanes) apart
+    from the others (the int8 exact rerank's)."""
+
+    def __enter__(self):
+        self.gmod = importlib.import_module("repro_torch.kernels.graph_topk")
+        self.real = self.gmod.beam_step_scores
+        self.real_unique = self.gmod._unique_mask
+        self.traversal = self.other = self._pending = 0
+
+        def unique(ids):
+            self._pending += 1
+            return self.real_unique(ids)
+
+        def recorder(*a, **kw):
+            if self._pending:
+                self._pending -= 1
+                self.traversal += 1
+            else:
+                self.other += 1
+            return self.real(*a, **kw)
+        self.gmod.beam_step_scores, self.gmod._unique_mask = recorder, unique
+        return self
+
+    def __exit__(self, *exc):
+        self.gmod.beam_step_scores = self.real
+        self.gmod._unique_mask = self.real_unique
+        return False
 
 
 def record_hops(torch, mgr, q, f, k: int) -> dict:
@@ -908,9 +1015,10 @@ def record_hops(torch, mgr, q, f, k: int) -> dict:
         return real_unique(ids)
 
     def recorder(q, pos, x, s, params, kind, metric="l2", scales=None):
-        calls.setdefault(x.data_ptr(), []).append(
-            ((q, pos.clone(), x, s, params, kind, metric, scales),
-             raw.pop()))
+        if raw:        # a hop of the traversal (not the int8 rerank)
+            calls.setdefault(x.data_ptr(), []).append(
+                ((q, pos.clone(), x, s, params, kind, metric, scales),
+                 raw.pop()))
         return real(q, pos, x, s, params, kind, metric, scales=scales)
     gmod.beam_step_scores, gmod._unique_mask = recorder, unique
     try:
@@ -1335,6 +1443,10 @@ def main_durability(torch, dev, keep: dict, nq: int) -> dict:
             misses = st["obs"]["metrics"]["counters"].get("tier_miss_total",
                                                           0)
             check(misses > 0, f"budget[{name}]: no tier miss counted")
+            # no injector is installed: no admission may have been absorbed
+            check("tier_admission" not in st["health"],
+                  f"budget[{name}]: an admission failed "
+                  f"{st['health'].get('tier_admission')}")
             log(f"durability[{name}]: budget {budget} of {full} pack bytes:"
                 f" scans == all-resident bit for bit; tier {st['tier']}, "
                 f"misses {misses}, buckets {st['pack_buckets']}")
@@ -1348,6 +1460,442 @@ def main_durability(torch, dev, keep: dict, nq: int) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Resilience (5d) and the serving tier (8)
+# ---------------------------------------------------------------------------
+def _kernel_mods():
+    return {name: importlib.import_module(f"repro_torch.kernels.{mod}")
+            for name, mod in (("filtered_topk", "filtered_topk"),
+                              ("quant_topk", "quant_topk"),
+                              ("graph_step", "graph_topk"))}
+
+
+def main_chaos(torch, dev, n: int, d: int, seed: int) -> dict:
+    """Phase 5d: a persistent manager on the card (``n_shards=2``, fp32
+    then int8, a device budget of a third of its pack) driven through the
+    lifecycle tape (``streaming.chaos.lifecycle_ops``: varied seals,
+    windowed queries with a generous deadline, deletes, compactions, a
+    backfill reader) under ``FaultInjector(rate=0.18, max_faults=5)`` over
+    the ten crash points.  Every injected crash is recovered (restore from
+    disk, re-apply what did not land) and every answer must equal the
+    fault-free, unbudgeted oracle's bit for bit; then the final answers,
+    live and from a fresh restore, on two filters with the scan and the
+    (scan-priced) planner legs, and a grouped query of four groups.  Each
+    leg must hit all eleven fault points.  Returns the B1 / B3 / B4
+    launches of the phase."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.core import IntervalFilter
+    from repro_torch.streaming import (FAULT_POINTS, FaultInjector,
+                                       GroupQuery, SegmentManager,
+                                       StreamConfig)
+    from repro_torch.streaming.chaos import (CRASH_POINTS, apply_op,
+                                             lifecycle_ops, run_chaos)
+    from repro_torch.streaming.planner import PlannerCosts
+    mods = _kernel_mods()
+    for mod in mods.values():
+        mod.reset_launch_count()
+    tape = lifecycle_ops(seed + 50, n, d, n_query=CHAOS_QUERIES)
+    kinds = {}
+    for op in tape:
+        kinds[op[0]] = kinds.get(op[0], 0) + 1
+    log(f"chaos tape: {len(tape)} ops {kinds} over {n} points x {d}")
+    rng = np.random.default_rng(seed + 51)
+    q = rng.normal(size=(CHAOS_QUERIES, d)).astype(np.float32)
+    t_end = max(float(op[2][:, 2].max()) for op in tape
+                if op[0] == "ingest")
+    finals = [None, IntervalFilter(dim=2, lo=np.float32(t_end / 3),
+                                   hi=np.float32(2 * t_end / 3))]
+    scan_priced = PlannerCosts(hop_cost=1e12)
+    for quantize in (None, "int8"):
+        name = quantize or "fp32"
+        base = dict(time_dim=2, seal_max_points=1 << 30, n_shards=2,
+                    compact_max_segments=3, quantize=quantize,
+                    wal_fsync_every=32)
+        t0 = time.perf_counter()
+        oracle = SegmentManager(d, 3, StreamConfig(**base), device=dev)
+        want = [apply_op(oracle, op) for op in tape]
+        torch.cuda.synchronize()
+        t_oracle = time.perf_counter() - t0
+        budget = oracle._pack.nbytes // 3
+        root = tempfile.mkdtemp(prefix="chaos_")
+        try:
+            cfg = StreamConfig(**base, persist_dir=os.path.join(root, "p"),
+                               device_budget_bytes=budget)
+            inj = FaultInjector(seed=seed + 52, rate=0.18, max_faults=5,
+                                points=CRASH_POINTS)
+
+            def restore():
+                mgr = SegmentManager.restore(cfg.persist_dir, cfg=cfg,
+                                             device=dev)
+                mgr.install_fault_injector(inj)
+                return mgr
+
+            mgr = SegmentManager(d, 3, cfg, device=dev)
+            mgr.install_fault_injector(inj)
+            t0 = time.perf_counter()
+            rec = run_chaos(mgr, tape, want, inj, restore,
+                            deadline_ms=CHAOS_DEADLINE_MS)
+            torch.cuda.synchronize()
+            t_chaos = time.perf_counter() - t0
+            mgr = rec["mgr"]
+            if mgr._prefetch_thread is not None:
+                mgr._prefetch_thread.join(60)
+            log(f"chaos[{name}]: oracle {t_oracle:.1f} s; faulted run "
+                f"{t_chaos:.1f} s, {rec['queries']} answers checked bit for "
+                f"bit; budget {budget} of {oracle._pack.nbytes} pack bytes")
+            log(f"chaos[{name}]: faults injected {len(inj.fired)} "
+                f"{inj.fired}; caught on the write/read path "
+                f"{rec['faults']}, restores {rec['restores']}, recovery s "
+                f"{[round(x, 3) for x in rec['recovery_s']]}")
+            log(f"chaos[{name}]: hits {dict(sorted(inj.hits.items()))}")
+            missing = [p for p in FAULT_POINTS if not inj.hits.get(p)]
+            check(not missing, f"chaos[{name}]: fault points never hit: "
+                  f"{missing}")
+            check(len(inj.fired) >= 1, f"chaos[{name}]: no fault injected")
+            health = mgr.stats()["health"]
+            log(f"chaos[{name}]: health errors " + str(
+                {w: h["errors"] for w, h in health.items()}))
+            inj.disarm()
+            fresh = SegmentManager.restore(cfg.persist_dir, cfg=cfg,
+                                           device=dev)
+            for label, m in (("live", mgr), ("restored", fresh)):
+                for f in finals:
+                    for leg in ("scan", "auto"):
+                        keep_o, keep_m = oracle.cfg, m.cfg
+                        if leg == "auto":
+                            oracle.cfg = dataclasses.replace(
+                                keep_o, planner_costs=scan_priced)
+                            m.cfg = dataclasses.replace(
+                                keep_m, planner_costs=scan_priced)
+                        try:
+                            og, od = oracle.query(q, f, k=10, read_path=leg)
+                            gg, dd = m.query(q, f, k=10, read_path=leg)
+                        finally:
+                            oracle.cfg, m.cfg = keep_o, keep_m
+                        check(bool(np.array_equal(og, gg)
+                                   and np.array_equal(od, dd)),
+                              f"chaos[{name}] {label} {leg} {f}: the final "
+                              f"answer differs from the oracle's")
+                        check(bool((gg >= 0).any()), f"chaos[{name}]: "
+                              f"{label} {leg} answered nothing")
+                st = m.stats()["tier"]
+                check(st["resident_bytes"] <= budget,
+                      f"chaos[{name}] {label}: {st} over the budget")
+            groups = [GroupQuery(q[i::4], finals[i % 2], k=10)
+                      for i in range(4)]
+            for g, r in zip(groups, fresh.query_grouped(groups)):
+                og, od = oracle.query(g.queries, g.filt, k=10)
+                check(bool(np.array_equal(og, r[0])
+                           and np.array_equal(od, r[1])),
+                      f"chaos[{name}]: a grouped answer differs")
+            log(f"chaos[{name}]: final answers (live and restored, 2 "
+                f"filters x scan/auto) and a grouped query equal the "
+                f"oracle's bit for bit")
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    launches = {kn: mod.launch_count() for kn, mod in mods.items()}
+    log(f"chaos phase launches: {launches}")
+    for kn in ("filtered_topk", "quant_topk"):
+        check(launches[kn] >= 1, f"kernel {kn} was not launched in 5d")
+    return launches
+
+
+class B1Grouped:
+    """While active, keeps the inputs of every grouped B1 launch (the
+    serving tier's shared bucket reads) and each launched group's real
+    row count (the launch zero-pads its groups to the widest), for the
+    measurement after it."""
+
+    def __enter__(self):
+        self.ops = importlib.import_module("repro_torch.kernels.ops")
+        self.shards = importlib.import_module(
+            "repro_torch.distributed.segment_shards")
+        self.real = self.ops.filtered_topk_grouped_call
+        self.real_grouped = self.shards.sharded_filtered_topk_grouped
+        self.calls, self.rows = [], []
+
+        def grouped(groups, xs, ss, metric="l2", m=None):
+            # the row counts of the classes that launch grouped, in launch
+            # order (``ops.sharded_filtered_topk_grouped``'s classing)
+            groups = list(groups)
+            mm = ss.shape[2] if m is None else int(m)
+            classes: dict = {}
+            for q, filt, k in groups:
+                enc = self.ops.encode_filter(filt, mm, mpad=max(mm, 2))
+                if enc is not None:
+                    classes.setdefault(
+                        (enc[0], self.ops.next_pow2(max(int(k), 8))),
+                        []).append(len(q))
+            self.rows.extend(r for r in classes.values() if len(r) > 1)
+            return self.real_grouped(groups, xs, ss, metric=metric, m=m)
+
+        def recorder(q, x, s, params, kind, kpad, metric="l2"):
+            rows = self.rows.pop(0)
+            check(len(rows) == q.shape[0] and max(rows) == q.shape[1],
+                  f"B1 grouped spy: rows {rows} for a launch of "
+                  f"{tuple(q.shape)}")
+            self.calls.append((q.clone(), x, s, params.clone(), kind, kpad,
+                               metric, rows))
+            return self.real(q, x, s, params, kind, kpad, metric=metric)
+        self.ops.filtered_topk_grouped_call = recorder
+        self.shards.sharded_filtered_topk_grouped = grouped
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.filtered_topk_grouped_call = self.real
+        self.shards.sharded_filtered_topk_grouped = self.real_grouped
+        return False
+
+
+def main_serving(torch, dev, seed: int, keep: dict) -> dict:
+    """Phase 8: the multi-tenant serving tier on the card.
+    ``GeoTemporalWorkload`` (``SERVE`` below: 4 tenants at d_emb = D,
+    25,000 points each, seals of 4,096, 2 shards, bursts and deletes
+    between flushes, half the requests with a 250 ms deadline) must keep
+    isolation at every step and recall@10 of 1.0 on every non-degraded
+    answer.  Then one recorded flush (64 requests per tenant, no
+    deadline) is answered grouped (one B1 launch per filter class and
+    bucket) and again solo, request by request, bit for bit; a second
+    identical flush is traced for the device idle share; and a store on
+    the graph read path (tenant 0's documents) answers a heterogeneous
+    ``retrieve_grouped`` batch group by group (B4), equal to solo
+    retrieves.  Returns the B1 / B3 / B4 launches."""
+    import numpy as np
+    import dataclasses
+    from repro_torch.core import BoxFilter
+    from repro_torch.serving.batching import (RetrievalFailure,
+                                              RetrievalRequest, _filter_key)
+    from repro_torch.serving.rag import DocumentStore
+    from repro_torch.serving.service import ServeRequest
+    from repro_torch.serving.workload import (SLO_REPORT_KEYS,
+                                              GeoTemporalWorkload,
+                                              WorkloadConfig)
+    mods = _kernel_mods()
+    b1 = mods["filtered_topk"]
+    for mod in mods.values():
+        mod.reset_launch_count()
+    cfg = WorkloadConfig(seed=seed, device=str(dev), **SERVE)
+    t0 = time.perf_counter()
+    wl = GeoTemporalWorkload(cfg)
+    report = wl.run()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    check(set(report) - {"latency_samples"} == set(SLO_REPORT_KEYS),
+          f"serving report keys {sorted(report)}")
+    us = [row["us_per_query"] for row in report["latency_samples"]]
+    rps = 1e6 / float(np.mean(us)) if us else 0.0
+    g_run = b1.grouped_launch_stats()
+    log(f"serving: {cfg.n_tenants} tenants x {cfg.n_initial} points x "
+        f"{cfg.d_emb}, {cfg.warmup_steps} + {cfg.n_steps} steps of "
+        f"{cfg.queries_per_step} requests per tenant in {t_run:.1f} s; "
+        f"report { {k: v for k, v in report.items() if k != 'latency_samples'} }")
+    log(f"serving: {rps:.1f} requests/s (flush host clock over the "
+        f"measured steps), p50 {report['latency_ms_p50']} ms, p99 "
+        f"{report['latency_ms_p99']} ms, degraded share "
+        f"{report['degraded_fraction']}; B1 grouped launches "
+        f"{g_run['launches']} ({g_run['groups'] / max(g_run['launches'], 1):.2f}"
+        f" groups and {g_run['shard_rows'] / max(g_run['launches'], 1):.2f} "
+        f"shard rows per launch), all B1 launches {b1.launch_count()}")
+    check(report["isolation_ok"] and report["isolation_checks"]
+          == cfg.n_tenants * (cfg.warmup_steps + cfg.n_steps),
+          f"serving: isolation {report['isolation_ok']} over "
+          f"{report['isolation_checks']} checks")
+    check(report["recall_at_10"] == 1.0, f"serving: recall@10 "
+          f"{report['recall_at_10']} on the non-degraded answers")
+    n_rejected = round(report["rejected_fraction"] * report["n_requests"])
+    check(report["n_answered"] == report["n_requests"] - n_rejected > 0,
+          f"serving: {report['n_answered']} of {report['n_requests']} "
+          f"requests answered, {n_rejected} rejected")
+    check(g_run["launches"] >= 1, "serving: B1 never launched grouped")
+
+    def no_fallback(what):
+        # a flush that fell back to solo queries, a failed request or an
+        # absorbed admission fails the phase (no injector is installed)
+        counters = wl.store.metrics.snapshot()["counters"]
+        health = wl.store.manager.stats()["health"]
+        for name in ("retrieval_grouped_fallback_total",
+                     "retrieval_failed_total"):
+            check(not counters.get(name), f"serving: {what}: {name} = "
+                  f"{counters.get(name)}")
+        check("tier_admission" not in health, f"serving: {what}: an "
+              f"admission failed {health.get('tier_admission')}")
+    no_fallback("the workload run")
+
+    def requests(rid0):
+        reqs = []
+        for t in wl.tenants:
+            for i in range(cfg.queries_per_step):
+                filt, _, _ = wl._query_filter()
+                reqs.append(ServeRequest(
+                    req_id=rid0 + len(reqs), tenant=t,
+                    query_emb=wl.rng.standard_normal(cfg.d_emb)
+                    .astype(np.float32), filt=filt, k=cfg.k))
+        return reqs
+    reqs = requests(10_000_000)
+    for r in reqs:
+        check(wl.service.submit(r) is None, "serving: a request rejected")
+    g0 = b1.grouped_launch_stats()
+    with B1Grouped() as spy:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers = wl.service.flush()
+        torch.cuda.synchronize()
+        t_grouped = time.perf_counter() - t0
+    g1 = b1.grouped_launch_stats()
+    no_fallback("the recorded flush")
+    check(g1["launches"] - g0["launches"] >= 1,
+          "serving: the recorded flush launched no grouped B1")
+    t0 = time.perf_counter()
+    solo = [wl.store.retrieve(r.tenant, r.query_emb, r.filt, k=r.k)
+            for r in reqs]
+    torch.cuda.synchronize()
+    t_solo = time.perf_counter() - t0
+    for r, s in zip(reqs, solo):
+        a = answers[r.req_id]
+        check(not isinstance(a, RetrievalFailure) and not a.degraded,
+              f"serving: recorded request {r.req_id} failed or degraded")
+        check(bool(np.array_equal(a.gids, s.gids[0])
+                   and np.array_equal(a.dists, s.dists[0])),
+              f"serving: request {r.req_id} grouped != solo")
+    n_groups = len({(r.tenant, _filter_key(r.filt, r.k)) for r in reqs})
+    log(f"serving: recorded flush of {len(reqs)} requests: grouped "
+        f"{t_grouped * 1e3:.1f} ms ({g1['launches'] - g0['launches']} "
+        f"grouped B1 launches, {g1['groups'] - g0['groups']} groups), solo "
+        f"{t_solo * 1e3:.1f} ms ({len(reqs)} retrieves); grouped == solo "
+        f"bit for bit")
+    reqs2 = requests(20_000_000)
+    for r in reqs2:
+        wl.service.submit(r)
+    t0 = time.perf_counter()
+    prof = profile_tick(torch, wl.service.flush)
+    wall = (time.perf_counter() - t0) * 1e3
+    idle = 1.0 - prof["device_ms"] / wall
+    log(f"serving: a traced flush: {wall:.1f} ms host clock (profiler on), "
+        f"{prof['device_ms']:.3f} ms device time in {prof['kernels']} "
+        f"kernels, idle share {idle:.3f}; top {prof['top']}")
+    # the per-group fallback: a store on the graph read path (tenant 0's
+    # documents) answers a heterogeneous batch group by group (B4)
+    coll = wl.store.collection(wl.tenants[0])
+    docs = [coll.docs_by_gid[g] for g in sorted(coll.docs_by_gid)]
+    t0 = time.perf_counter()
+    gstore = DocumentStore(docs, streaming=True,
+                           stream_cfg=dataclasses.replace(wl._scfg),
+                           read_path="graph", device=dev)
+    gstore.maintenance()
+    t_build = time.perf_counter() - t0
+    w = cfg.region_half_width
+    greqs = [RetrievalRequest(
+        req_id=i, query_emb=wl.rng.standard_normal(cfg.d_emb)
+        .astype(np.float32), k=cfg.k,
+        filt=BoxFilter(lo=np.float32([cx - w, cy - w, -np.inf]),
+                       hi=np.float32([cx + w, cy + w, np.inf])))
+        for i, (cx, cy) in enumerate([(2.0, 2.0), (7.0, 6.0), (4.5, 8.0)]
+                                     * 8)]
+    before = mods["graph_step"].launch_count()
+    grouped = gstore.retrieve_grouped(greqs)
+    modes = {dec.mode for dec in (gstore.manager.last_plan or {}).values()}
+    check("graph" in modes, f"serving: the graph-path store planned {modes}")
+    check(mods["graph_step"].launch_count() > before,
+          "serving: the graph-path store launched no B4")
+    found = 0
+    for r in greqs:
+        solo = gstore.retrieve(r.query_emb, r.filt, k=r.k)[0]
+        check([d.doc_id for d in grouped[r.req_id]]
+              == [d.doc_id for d in solo],
+              f"serving: graph-path request {r.req_id} grouped != solo")
+        found += len(solo)
+    check(found > 0, "serving: the graph-path store answered nothing")
+    log(f"serving: graph-path store of {len(docs)} documents built in "
+        f"{t_build:.1f} s; {len(greqs)} requests in 3 filter groups "
+        f"answered group by group (B4) == solo retrieves")
+    launches = {kn: mod.launch_count() for kn, mod in mods.items()}
+    log(f"serving phase launches: {launches}")
+    for kn in ("filtered_topk", "graph_step"):
+        check(launches[kn] >= 1, f"kernel {kn} was not launched in 8")
+    keep["serving"] = dict(
+        rps=rps, p50=report["latency_ms_p50"], p99=report["latency_ms_p99"],
+        degraded=report["degraded_fraction"], grouped_ms=t_grouped * 1e3,
+        solo_ms=t_solo * 1e3, idle=idle, groups=n_groups,
+        grouped_launches=g_run["launches"] + g1["launches"] - g0["launches"],
+        calls=spy.calls)
+    return launches
+
+
+def measure_grouped(torch, keep: dict, errs: dict) -> dict:
+    """B1's grouped launch on the recorded flush's largest launch: held
+    against its twin, then timed beside its twin, the same groups as G
+    solo launches (each at its real rows, as a solo query makes them),
+    one dense library computation over the real rows and its bound (the
+    real rows' work: the launch also computes the zero rows that pad
+    each group to the widest)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.filtered_topk import (
+        filtered_topk_call, filtered_topk_grouped_call,
+        filtered_topk_grouped_plain)
+    calls = keep["serving"]["calls"]
+    q, xs, ss, params, kind, kpad, metric, rows = max(
+        calls, key=lambda c: sum(c[7]) * c[1].shape[1])
+    G, bq, d = q.shape
+    S, n, m = ss.shape
+    k = 10
+    args = (q, xs, ss, params, kind, kpad, metric)
+    kd, ki = filtered_topk_grouped_call(*args)
+    torch.cuda.synchronize()
+    td, ti = filtered_topk_grouped_plain(*args)
+    err = max(compare_topk(torch, kd[g], ki[g], td[g], ti[g],
+                           row_scale(torch, q[g], xs.reshape(-1, d)),
+                           f"B1 grouped vs twin, group {g}")
+              for g in range(G))
+    errs["filtered_topk"] = max(errs["filtered_topk"], err)
+    ms = cuda_ms(torch, lambda: filtered_topk_grouped_call(*args), iters=20)
+    plain = cuda_ms(torch, lambda: filtered_topk_grouped_plain(*args),
+                    iters=2, warmup=1)
+    real_q = [q[g, :b].contiguous() for g, b in enumerate(rows)]
+
+    def solo():
+        for g in range(G):
+            filtered_topk_call(real_q[g][None], xs, ss, params[g][None],
+                               kind, kpad, metric)
+    solo_ms = cuda_ms(torch, solo, iters=10)
+    qf, xf = torch.cat(real_q), xs.reshape(S * n, d)
+    oks = [ref.filter_mask_ref(ss, kind, params[g]).reshape(S * n)
+           for g in range(G)]
+    ok_rows = torch.cat([ok[None].expand(b, -1) for ok, b in zip(oks, rows)])
+
+    def library():
+        dm = (qf * qf).sum(1)[:, None] - 2.0 * torch.matmul(qf, xf.T) \
+            + (xf * xf).sum(1)[None, :]
+        dm = dm.masked_fill(~ok_rows, float("inf"))
+        return torch.topk(dm, k, dim=1, largest=False)
+    lib_ms = cuda_ms(torch, library, iters=5, warmup=1)
+    # what these inputs need: each group's real rows against its passing
+    # candidates; every metadata row, the vectors that pass some group
+    # (each read once), the real query rows, parameters and their lists
+    passing = [int(ok.sum()) for ok in oks]
+    union = int(torch.stack(oks).any(0).sum())
+    n_rows = sum(rows)
+    flops = 2.0 * d * sum(b * p for b, p in zip(rows, passing))
+    nbytes = 4.0 * (S * n * m + union * d + n_rows * d
+                    + G * 4 * params.shape[2]) + 8.0 * S * n_rows * kpad
+    bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    out = dict(ms=ms, plain_ms=plain, solo_ms=solo_ms, library_ms=lib_ms,
+               bound_ms=bound, bound_by="operations"
+               if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes",
+               pass_share=sum(passing) / (G * S * n), max_abs_err=err,
+               shape=f"G={G} groups of {n_rows} real rows (padded to "
+                     f"q[{bq},{d}] each) over x[{S},{n},{d}] "
+                     f"s[{S},{n},{m}] {kind} kpad={kpad}")
+    log(f"B1 grouped at {out['shape']}: kernel {ms:.3f} ms, {G} solo "
+        f"launches {solo_ms:.3f} ms, twin {plain:.3f} ms, library "
+        f"{lib_ms:.3f} ms, bound {bound:.4f} ms ({out['bound_by']}; "
+        f"{out['pass_share']:.4f} of the group x candidate pairs pass; "
+        f"rows per group {rows}), max |err| {err:.3g}")
+    return out
 
 
 def measure_cold(torch, dev, name, rest, tier, q, k: int) -> None:
@@ -1827,6 +2375,7 @@ def main() -> int:
             "graph_step": 0.0, "flash_decode": 0.0}
     with Phase("2 kernels vs twins", torch):
         phase_kernels(torch, dev, SEED, errs)
+        phase_kernels_grouped(torch, dev, SEED, errs)
         phase_kernels_decode(torch, dev, SEED, errs)
     if args.kernels_only:
         return 0
@@ -1881,6 +2430,10 @@ def main() -> int:
         # the phase resets every count just before it and reads it after
         for name, c in main_durability(torch, dev, keep, QUERIES).items():
             launches[name] += c
+    with Phase("5d resilience", torch):
+        # the phase resets every count just before it and reads it after
+        for name, c in main_chaos(torch, dev, CHAOS_N, D, SEED).items():
+            launches[name] += c
 
     # ---- the generation side, after the retrieval phases' tensors go ---
     b1_live = {"stream": keep["b1_live_share_stream"],
@@ -1911,6 +2464,18 @@ def main() -> int:
         f"{g['decode_tick_ms_p50']:.3f}), {g['tokens_per_s']:.1f} tokens/s "
         f"end to end, decode vs forward {g['decode_vs_forward_rel']:.4f} x "
         f"rms")
+
+    # ---- the serving tier, after the generation side's tensors go ------
+    keep.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase("8 serving tier", torch):
+        # the phase resets every count just before it and reads it after
+        for name, c in main_serving(torch, dev, SEED, keep).items():
+            launches[name] += c
+    with Phase("8 measure (B1 grouped on the recorded flush)", torch):
+        meas["filtered_topk_grouped"] = measure_grouped(torch, keep, errs)
+    sv = keep["serving"]
     sources = {"filtered_topk": ("src/repro_torch/csrc/filtered_topk.cu",
                                  "src/repro/kernels/filtered_topk.py:131"),
                "pairwise_dist": ("src/repro_torch/csrc/distance.cu",
@@ -1947,6 +2512,18 @@ def main() -> int:
                 entry[key] = mm[key]
             entry["tile_share"] = {"stream": b1_live["stream"],
                                    "sharded": b1_live["sharded"]}
+            # the grouped launch of the serving tier (phase 8), timed on
+            # the recorded flush's largest launch
+            mg = meas["filtered_topk_grouped"]
+            entry["grouped"] = {
+                key: mg[key] for key in (
+                    "ms", "plain_ms", "solo_ms", "library_ms", "bound_ms",
+                    "bound_by", "pass_share", "max_abs_err", "shape")}
+            entry["grouped"]["launches"] = sv["grouped_launches"]
+            entry["grouped"]["flush"] = {
+                key: sv[key] for key in ("rps", "p50", "p99", "degraded",
+                                         "grouped_ms", "solo_ms", "idle",
+                                         "groups")}
         if name == "quant_topk":
             for key in ("dense_bound_ms", "pass_share", "live_tile_share",
                         "tile_share", "dense_ms"):

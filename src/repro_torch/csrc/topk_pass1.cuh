@@ -7,11 +7,18 @@
 // of that split in global memory; pass 2 (topk_common.cuh::topk_merge)
 // merges the splits.
 //
-//   * Grid (query tiles, splits, g), query tiles fastest, so the blocks
-//     that run together read the same candidates (once from HBM, then
-//     from L2).  Split s takes the 128-candidate tiles s, s + splits, ...
-//     of its row (strided), so a contiguous run of passing rows (a time
-//     range of a time-ordered stream) is shared out evenly.
+//   * Grid (groups x query tiles, splits, g), query tiles fastest, so
+//     the blocks that run together read the same candidates (once from
+//     HBM, then from L2).  A grouped launch (B1 only: G request groups,
+//     each with its own queries and filter, over one stack of g shard
+//     rows) puts the group in the x index beside the query tile, so
+//     every group's blocks over one split of one shard row run next to
+//     each other and share its tiles in L2; the shard block is read in
+//     place (x, s by shard row), the queries and parameters by group.
+//     Output row of a block: group * g + shard row.  Split s takes the
+//     128-candidate tiles s, s + splits, ... of its row (strided), so a
+//     contiguous run of passing rows (a time range of a time-ordered
+//     stream) is shared out evenly.
 //   * Predicate first: the block evaluates the packed predicate over all
 //     its candidates before it copies any vector (one ok bit each in
 //     shared memory), counts the passing ones per 32-candidate word
@@ -99,7 +106,8 @@ __global__ void __launch_bounds__(NT, 2) topk_pass1(
     const float* __restrict__ params, float* __restrict__ out_d,
     int* __restrict__ out_i, int bq, int n, int d, int m, int mp, int kpad,
     int kind, int metric, long long q_gs, long long x_gs, long long s_gs,
-    long long xq_gs, long long p_gs, int vec_q, int vec_x) {
+    long long xq_gs, long long p_gs, long long q_grs, long long p_grs,
+    int vec_q, int vec_x) {
   using C = Cfg<SB, TQ>;
   using M = typename C::M;
   constexpr int RQ = C::RQ, RC = C::RC;
@@ -117,15 +125,19 @@ __global__ void __launch_bounds__(NT, 2) topk_pass1(
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tx = tid % C::TX, ty = tid / C::TX;
-  const int q0 = blockIdx.x * TQ, split = blockIdx.y, splits = gridDim.y;
-  const int gi = blockIdx.z;
+  const int qtiles = (bq + TQ - 1) / TQ;
+  const int grp = blockIdx.x / qtiles;              // request group
+  const int q0 = (blockIdx.x - grp * qtiles) * TQ;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int gi = blockIdx.z;                        // shard row
+  const long long go = (long long)grp * gridDim.z + gi;   // output row
   const int ntiles = (n + TN - 1) / TN;
   const int nt = split < ntiles ? (ntiles - split + splits - 1) / splits : 0;
   const int nw = nt * (TN / 32);
-  const float* qg = q + gi * q_gs;
+  const float* qg = q + grp * q_grs + gi * q_gs;
   const SB* xg = x + gi * x_gs;
   const float* sgm = s + gi * s_gs;
-  const float* pg = params + gi * p_gs;
+  const float* pg = params + grp * p_grs + gi * p_gs;
 
   for (int i = tid; i < TQ * kpad; i += NT) { Ld[i] = INFINITY; Li[i] = INT_MAX; }
 
@@ -297,14 +309,16 @@ __global__ void __launch_bounds__(NT, 2) topk_pass1(
     const int r = i / kpad, jj = i % kpad, row = q0 + r;
     if (row >= bq) continue;
     const long long o =
-        (((long long)gi * splits + split) * bq + row) * kpad + jj;
+        ((go * splits + split) * bq + row) * kpad + jj;
     const float dv = Ld[i];
     out_d[o] = dv;
     out_i[o] = isfinite(dv) ? Li[i] : -1;
   }
 }
 
-// Everything a launch needs besides the candidates' type.
+// Everything a launch needs besides the candidates' type.  `groups` > 1
+// is a grouped launch (queries and parameters strided by group with
+// q_grs / p_grs); the outputs are then [groups * g, ...].
 struct Args {
   const float *q, *s, *xsq, *params;
   float *out_d, *part_d;
@@ -312,6 +326,8 @@ struct Args {
   int g, bq, n, d, m, mp, kpad, kind, metric, tq, splits, vec_q, vec_x,
       smem;
   long long q_gs, x_gs, s_gs, xq_gs, p_gs;
+  int groups = 1;
+  long long q_grs = 0, p_grs = 0;
 };
 
 template <typename SB, int TQ>
@@ -325,7 +341,7 @@ cudaError_t launch_tq(const Args& a, const SB* x, dim3 grid, float* od,
   topk_pass1<SB, TQ><<<grid, NT, a.smem, st>>>(
       a.q, x, a.s, a.xsq, a.params, od, oi, a.bq, a.n, a.d, a.m, a.mp,
       a.kpad, a.kind, a.metric, a.q_gs, a.x_gs, a.s_gs, a.xq_gs, a.p_gs,
-      a.vec_q, a.vec_x);
+      a.q_grs, a.p_grs, a.vec_q, a.vec_x);
   return cudaGetLastError();
 }
 
@@ -337,11 +353,12 @@ template <typename SB>
 cudaError_t run(const Args& a, const SB* x, int max_kpad, cudaStream_t st) {
   if (a.m > MAXM || a.m < 1 || a.mp < a.m || a.kpad < 1 ||
       a.kpad > max_kpad || a.tq < 1 || a.splits < 1 || a.splits > 65535 ||
-      a.g < 1 || a.g > 65535 ||
+      a.g < 1 || a.g > 65535 || a.groups < 1 ||
+      (long long)a.groups * ((a.bq + a.tq - 1) / a.tq) > 0x7fffffffLL ||
       (long long)a.splits * MAX_TILES * TN < a.n || !vec_ok(a.vec_q) ||
       !vec_ok(a.vec_x) || (a.splits > 1 && (!a.part_d || !a.part_i)))
     return cudaErrorInvalidValue;
-  const dim3 grid((a.bq + a.tq - 1) / a.tq, a.splits, a.g);
+  const dim3 grid(a.groups * ((a.bq + a.tq - 1) / a.tq), a.splits, a.g);
   float* od = a.splits == 1 ? a.out_d : a.part_d;
   int* oi = a.splits == 1 ? a.out_i : a.part_i;
   cudaError_t e;
@@ -353,8 +370,8 @@ cudaError_t run(const Args& a, const SB* x, int max_kpad, cudaStream_t st) {
     default: e = cudaErrorInvalidValue;
   }
   if (e != cudaSuccess || a.splits == 1) return e;
-  return launch_merge(a.part_d, a.part_i, a.out_d, a.out_i, a.g, a.splits,
-                      a.bq, a.kpad, st);
+  return launch_merge(a.part_d, a.part_i, a.out_d, a.out_i,
+                      a.groups * a.g, a.splits, a.bq, a.kpad, st);
 }
 
 }  // namespace p1

@@ -65,6 +65,7 @@ from ..core import Filter
 from ..device import resolve_device
 from ..kernels.ops import (PAD_META, block_layout, next_pow2, round_up,
                            kernels_loaded, sharded_filtered_topk,
+                           sharded_filtered_topk_grouped,
                            sharded_quant_filtered_topk)
 from ..obs.trace import NULL_TRACE, block_ready
 
@@ -1030,12 +1031,122 @@ def pack_search_blocks(view: PackView, queries: np.ndarray,
     return blocks
 
 
-def pack_search_blocks_grouped(view: PackView, groups, **kw):
-    """Grouped (continuous filtered batching) sibling of
-    :func:`pack_search_blocks` — a later slice of the port."""
-    raise NotImplementedError(
-        "pack_search_blocks_grouped (grouped queries) is not ported to "
-        "repro_torch yet (ROADMAP Queue A item 11)")
+def pack_search_blocks_grouped(view: PackView, groups,
+                               metric: str = "l2", trace=None,
+                               observe=None, on_cold=None,
+                               deadlines=None, on_expired=None,
+                               fault=None, observe_group=None
+                               ) -> List[List[Tuple[np.ndarray, np.ndarray]]]:
+    """Heterogeneous-request sibling of :func:`pack_search_blocks`: several
+    ``(queries, filt, k, t_lo, t_hi)`` request groups scan the pack's fp32
+    buckets in ONE pass, sharing each bucket's device block across every
+    group temporally active there.
+
+    Per bucket, the groups whose window meets it (exactly the groups for
+    which a solo :func:`pack_search_blocks` call would dispatch it) go
+    through one :func:`repro_torch.kernels.ops.sharded_filtered_topk_grouped`
+    call — one B1 launch per filter class over the bucket's block, read in
+    place — and each group's shard-local lists are merged with the group's
+    own temporal ``active`` mask and ``k``.  Every group's candidate block
+    is bit for bit its solo call's, so callers merge the returned blocks
+    as if each group had scanned alone.  A cold bucket is copied to the
+    device once (:func:`stage_bucket`) for all its groups, and
+    ``on_cold(cap, stage_bytes)`` fires once for it.
+
+    ``deadlines`` (parallel to ``groups``: objects with ``expired()`` or
+    None) drops a group from all remaining buckets once its deadline
+    passes, reporting ``on_expired(group_idx, buckets_remaining)`` once;
+    ``fault()`` fires before each bucket's dispatch (the owner's
+    ``query.bucket`` fault point); ``observe`` gets one union observation
+    per bucket, ``observe_group(group_idx, cap, rows=, active_rows=,
+    candidates=, candidate_slots=, cache_hit=)`` the same dispatch per
+    group (per-tenant ``BucketStats``).  Returns one candidate-block list
+    per group (a dropped group keeps the blocks gathered before its
+    deadline passed)."""
+    trace = NULL_TRACE if trace is None else trace
+    groups = [(np.atleast_2d(np.asarray(q, np.float32)), f, int(k),
+               float(t_lo), float(t_hi)) for q, f, k, t_lo, t_hi in groups]
+    want_obs = (observe is not None or observe_group is not None
+                or trace.enabled)
+    blocks: List[List[Tuple[np.ndarray, np.ndarray]]] = \
+        [[] for _ in groups]
+    expired = [False] * len(groups)
+    buckets = list(view.buckets)
+    dev = view.device
+    qt: Dict[int, torch.Tensor] = {}
+    for bi, bv in enumerate(buckets):
+        if deadlines is not None:
+            for gi, dl in enumerate(deadlines):
+                if not expired[gi] and dl is not None and dl.expired():
+                    expired[gi] = True
+                    if on_expired is not None:
+                        on_expired(gi, len(buckets) - bi)
+        rows = int(bv.gids.shape[0])
+        actives = {}
+        live: List[int] = []
+        for gi, (_, _, _, t_lo, t_hi) in enumerate(groups):
+            if expired[gi]:
+                continue
+            act = bv.active_rows(t_lo, t_hi)
+            if act.any():
+                actives[gi] = act
+                live.append(gi)
+            elif observe_group is not None:   # whole-block temporal prune
+                observe_group(gi, bv.cap, rows=rows, active_rows=0)
+        if not live:
+            if observe is not None:
+                observe(bv.cap, rows=rows, active_rows=0)
+            continue
+        if fault is not None:
+            fault()
+        cold = not bv.resident
+        if cold and on_cold is not None:
+            on_cold(bv.cap, bv.stage_bytes)
+        union_active = int(np.logical_or.reduce(
+            [actives[gi] for gi in live]).sum())
+        cache_hit = kernels_loaded("fp32") if want_obs else False
+        with trace.span("bucket_dispatch_grouped", cap=bv.cap, rows=rows,
+                        active_rows=union_active, n_groups=len(live),
+                        resident=not cold) as sp:
+            bv = stage_bucket(bv, dev)
+            for gi in live:
+                if gi not in qt:
+                    qt[gi] = torch.as_tensor(groups[gi][0], device=dev)
+            sub = [(qt[gi], groups[gi][1], min(groups[gi][2], bv.cap))
+                   for gi in live]
+            results = sharded_filtered_topk_grouped(sub, bv.x, bv.s,
+                                                    metric=metric, m=view.m)
+            merged = []
+            for (ids, dd), gi in zip(results, live):
+                kk = min(groups[gi][2], bv.cap)
+                k_out = min(groups[gi][2], rows * kk)
+                out_g, out_d = _merge_shard_topk(
+                    ids, dd, bv.gids,
+                    torch.as_tensor(actives[gi], device=dev), k_out)
+                merged.append((out_g.cpu().numpy(),
+                               out_d.cpu().numpy().astype(np.float32)))
+        n_cand_total = 0
+        for (out_g, out_d), gi in zip(merged, live):
+            blocks[gi].append((out_g, out_d))
+            if want_obs:
+                n_cand = int((out_g >= 0).sum())
+                n_cand_total += n_cand
+                if observe_group is not None:
+                    observe_group(
+                        gi, bv.cap, rows=rows,
+                        active_rows=int(actives[gi].sum()),
+                        candidates=n_cand,
+                        candidate_slots=out_g.shape[0] * out_g.shape[1],
+                        cache_hit=cache_hit)
+        if want_obs:
+            sp.annotate(candidates=n_cand_total, cache_hit=cache_hit)
+            if observe is not None:
+                observe(bv.cap, rows=rows, active_rows=union_active,
+                        candidates=n_cand_total,
+                        candidate_slots=sum(
+                            g.shape[0] * g.shape[1] for g, _ in merged),
+                        cache_hit=cache_hit)
+    return blocks
 
 
 def pack_search(pack, queries: np.ndarray, filt: Optional[Filter],

@@ -37,7 +37,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "filtered_topk": {
-        "repro_filtered_topk": ([_P] * 8 + [_I] * 14 + [_L] * 4 + [_P], _I),
+        "repro_filtered_topk": ([_P] * 8 + [_I] * 15 + [_L] * 6 + [_P], _I),
     },
     "distance": {
         "repro_pairwise_dist": ([_P, _P, _P] + [_I] * 10 + [_P], _I),

@@ -16,7 +16,7 @@ from ..core.filters import (BallFilter, BoxFilter, ComposeFilter, Filter,
                             IntervalFilter)
 from ..device import as_tensor, resolve_device
 from .distance import pairwise_dist_call
-from .filtered_topk import filtered_topk_call
+from .filtered_topk import filtered_topk_call, filtered_topk_grouped_call
 from .quant_topk import quant_topk_call
 from .ref import PAD_META
 
@@ -249,11 +249,57 @@ def sharded_filtered_topk(q, xs, ss, filt: Optional[Filter], k: int,
 
 def sharded_filtered_topk_grouped(groups, xs, ss, metric: str = "l2",
                                   m: Optional[int] = None):
-    """Several request groups against one shard stack — the grouped read
-    path, a later slice of the port."""
-    raise NotImplementedError(
-        "sharded_filtered_topk_grouped (grouped queries) is not ported to "
-        "repro_torch yet (ROADMAP Queue A item 11)")
+    """Heterogeneous-filter shard-stack scan: several ``(q, filt, k)``
+    request groups against ONE ``[g, n, d]`` / ``[g, n, m]`` shard stack.
+
+    Groups whose filters share a kernel encoding class — the same filter
+    ``kind`` and the same ``kpad = next_pow2(max(k, 8))`` — go into one
+    grouped B1 launch per class (queries zero-padded to the class's
+    widest group, one packed parameter block per group), which reads the
+    stack in place once for the whole class.  Singleton classes and
+    filters without a kernel encoding go through
+    :func:`sharded_filtered_topk` unchanged.
+
+    Returns a list of ``(ids [g, bq_i, k_i], dists [g, bq_i, k_i])``
+    aligned with ``groups``, each bit for bit what
+    ``sharded_filtered_topk(q_i, xs, ss, filt_i, k_i)`` returns alone: the
+    kernel computes every query row independently, and a candidate's
+    distance and the (distance, id) list order do not depend on the
+    launch's grouping or splits."""
+    groups = list(groups)
+    dev = xs.device
+    m = ss.shape[2] if m is None else int(m)
+    mp = max(m, 2)
+    out: list = [None] * len(groups)
+    classes: Dict[Tuple[str, int], list] = {}
+    for i, (q, filt, k) in enumerate(groups):
+        enc = encode_filter(filt, m, mpad=mp)
+        if enc is None:
+            out[i] = sharded_filtered_topk(q, xs, ss, filt, int(k),
+                                           metric=metric, m=m)
+            continue
+        kind, params = enc
+        kpad = next_pow2(max(int(k), 8))
+        classes.setdefault((kind, kpad), []).append((i, q, params, int(k)))
+    for (kind, kpad), members in classes.items():
+        if len(members) == 1:
+            i, q, _, k = members[0]
+            out[i] = sharded_filtered_topk(q, xs, ss, groups[i][1], k,
+                                           metric=metric, m=m)
+            continue
+        qs = [as_tensor(q, dev, torch.float32) for _, q, _, _ in members]
+        bq = max(q.shape[0] for q in qs)
+        qp = torch.zeros((len(qs), bq, xs.shape[2]), dtype=torch.float32,
+                         device=dev)
+        for gi, q in enumerate(qs):
+            qp[gi, :q.shape[0]] = q
+        params = as_tensor(np.stack([p for _, _, p, _ in members]), dev)
+        dd, ids = filtered_topk_grouped_call(qp, xs, ss, params, kind, kpad,
+                                             metric=metric)
+        for gi, (i, _, _, k) in enumerate(members):
+            b = qs[gi].shape[0]
+            out[i] = (ids[gi, :, :b, :k], dd[gi, :, :b, :k])
+    return out
 
 
 def sharded_quant_filtered_topk(q, codes, ss, xsq, scales,

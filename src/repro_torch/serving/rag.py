@@ -6,8 +6,8 @@ The document store holds (embedding, metadata, token span) triples; the
 query embedder is the reference's linear projection stub, drawn from the
 same numpy generator so both packages retrieve the same documents.
 Persistence (``restore`` / ``snapshot_to``), tiering
-(``device_budget_bytes``) and grouped retrieval raise
-``NotImplementedError`` naming their ROADMAP item.
+(``device_budget_bytes``) and grouped retrieval (``retrieve_grouped``)
+work as in the reference.
 """
 from __future__ import annotations
 
@@ -22,7 +22,6 @@ from ..core import CubeGraphConfig, CubeGraphIndex, Filter
 from ..device import resolve_device
 from ..obs import StreamObs, json_sanitize
 from ..streaming import SegmentManager, StreamConfig
-from ..streaming.manager import _unported
 from .serve_step import generate
 
 
@@ -179,8 +178,50 @@ class DocumentStore:
         return out
 
     def retrieve_grouped(self, requests) -> dict:
-        raise _unported("DocumentStore.retrieve_grouped (grouped "
-                        "retrieval)", 11)
+        """Continuous filtered batching over heterogeneous requests:
+        answer a batch of :class:`~repro_torch.serving.batching
+        .RetrievalRequest` with different filters / ``k`` / deadlines in
+        shared dispatches — a streaming store reads each sealed bucket's
+        device block once for the whole batch
+        (``SegmentManager.query_grouped``) instead of once per distinct
+        filter.  Answers are bit for bit the per-request :meth:`retrieve`
+        answers.  Returns ``{req_id: RetrievedDocs}``."""
+        from .batching import _filter_key
+        requests = list(requests)
+        out: dict = {}
+        if not requests:
+            return out
+        t0 = time.perf_counter()
+        groups: dict = {}
+        for r in requests:
+            groups.setdefault((_filter_key(r.filt, r.k), r.deadline_ms),
+                              []).append(r)
+        members = list(groups.values())
+        if self.streaming:
+            from ..streaming import GroupQuery
+            gqs = [GroupQuery(
+                np.stack([r.query_emb for r in reqs]).astype(np.float32),
+                reqs[0].filt, k=reqs[0].k,
+                deadline_ms=reqs[0].deadline_ms) for reqs in members]
+            for reqs, res in zip(members, self.manager.query_grouped(gqs)):
+                ids = np.asarray(res[0])
+                degraded = bool(getattr(res, "degraded", False))
+                reasons = dict(getattr(res, "reasons", {}) or {})
+                for r, row in zip(reqs, ids):
+                    out[r.req_id] = RetrievedDocs(
+                        (self.docs[i] for i in row if i >= 0),
+                        degraded=degraded, reasons=reasons)
+        else:
+            for reqs in members:
+                q = np.stack([r.query_emb for r in reqs]).astype(np.float32)
+                ids, _ = self.index.query(q, reqs[0].filt, k=reqs[0].k)
+                for r, row in zip(reqs, np.asarray(ids)):
+                    out[r.req_id] = RetrievedDocs(
+                        self.docs[i] for i in row if i >= 0)
+        self.metrics.counter("retrieve_requests_total").inc(len(requests))
+        self.metrics.histogram("retrieve_ms").observe(
+            (time.perf_counter() - t0) * 1e3)
+        return out
 
     def metrics_snapshot(self) -> dict:
         """Strict-JSON-safe export of every metric this store touches."""

@@ -14,13 +14,16 @@
                   recovery, in the JAX package's on-disk format
 - ``tiering``     device memory as a budgeted cache over the bucketed pack
                   (TierState residency policy, time-window prefetch)
-- ``resilience``  supervised background workers and query deadlines
+- ``resilience``  fault injection at named fault points, supervised
+                  background workers and query deadlines
 """
 from .manager import CompactionPlan, SegmentManager, StreamConfig
 from .persistence import (RestoreError, StreamPersistence, WriteAheadLog,
                           load_manifest, restore_manager)
-from .query import merge_topk, query_segments, temporal_bounds
-from .resilience import Deadline, QueryResult, Supervisor
+from .query import (GroupQuery, merge_topk, query_segments,
+                    query_segments_grouped, temporal_bounds)
+from .resilience import (FAULT_POINTS, Deadline, FaultError, FaultInjector,
+                         QueryResult, Supervisor)
 from .segments import (DeltaBuffer, DeltaSnapshot, PointStore, SealedSegment,
                        SegmentQueryStats)
 from .tiering import TierState
@@ -29,9 +32,11 @@ __all__ = [
     "CompactionPlan", "SegmentManager", "StreamConfig",
     "DeltaBuffer", "DeltaSnapshot", "PointStore", "SealedSegment",
     "SegmentQueryStats",
-    "merge_topk", "query_segments", "temporal_bounds",
+    "merge_topk", "query_segments", "temporal_bounds", "GroupQuery",
+    "query_segments_grouped",
     "RestoreError", "StreamPersistence", "WriteAheadLog", "load_manifest",
     "restore_manager",
     "TierState",
-    "Deadline", "QueryResult", "Supervisor",
+    "FAULT_POINTS", "FaultError", "FaultInjector", "Deadline", "QueryResult",
+    "Supervisor",
 ]

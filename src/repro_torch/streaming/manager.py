@@ -46,8 +46,16 @@ resident; the coldest buckets live in page-locked host memory and stream
 through the same kernels per dispatch, so answers stay the all-resident
 ones bit for bit.
 
-Fault injection and grouped queries are options of later slices: they
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+Resilience (``streaming/resilience.py``): a ``FaultInjector`` installed
+with :meth:`SegmentManager.install_fault_injector` fires at the eleven
+named fault points (WAL, checkpoint, pack delta, the admission trio,
+prefetch, compaction, the deadline path's per-bucket dispatch); background
+workers run under a ``Supervisor`` that records every failure in
+``stats()["health"]``.
+
+Grouped queries (:meth:`SegmentManager.query_grouped`) answer several
+heterogeneous request groups in one pass, sharing each sealed bucket's
+device block across the groups (one kernel launch per filter class).
 """
 from __future__ import annotations
 
@@ -129,12 +137,6 @@ class StreamConfig:
     mmap_segments: bool = True            # restore x/s via np.load(mmap_mode)
     index_cfg: CubeGraphConfig = dataclasses.field(
         default_factory=CubeGraphConfig)
-
-
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue A item "
-        f"{item})")
 
 
 @dataclasses.dataclass
@@ -229,8 +231,12 @@ class SegmentManager:
                          "store_gc_points": 0}
         from ..obs import StreamObs
         self.obs = StreamObs(enabled=cfg.obs_enabled)
+        # the Supervisor owns every background worker (compactor,
+        # prefetcher, checkpointer); fault_injector is None in production
+        # and a FaultInjector under a chaos harness
         from .resilience import Supervisor
         self.supervisor = Supervisor(registry=self.obs.registry)
+        self.fault_injector = None
         # Tiered storage: TierState owns the budget and the query-window
         # history; the manager serializes every evict / admit under _lock.
         self.tier = None
@@ -256,13 +262,30 @@ class SegmentManager:
             self.persist.checkpoint(self)
 
     # ------------------------------------------------------------------
-    # Options of later slices
+    # Resilience: fault points + supervised workers
     # ------------------------------------------------------------------
-    def install_fault_injector(self, inj) -> None:
-        raise _unported("fault injection", 10)
+    def _fault(self, point: str) -> None:
+        """Fire one named fault point when an injector is installed (the
+        production path is a single None check)."""
+        inj = self.fault_injector
+        if inj is not None:
+            inj(point)
 
-    def query_grouped(self, groups, trace=None, observe_group=None):
-        raise _unported("grouped queries (continuous filtered batching)", 11)
+    def install_fault_injector(self, inj) -> None:
+        """Thread a :class:`~.resilience.FaultInjector` (or None to
+        uninstall) through every fault point this manager owns: the WAL
+        (``wal.append`` / ``wal.fsync``), checkpoint artifacts
+        (``segment.write`` / ``manifest.rename``), the pack's admission
+        trio, and the lifecycle points (``pack.delta`` /
+        ``prefetch.round`` / ``compaction.execute`` / ``query.bucket``)."""
+        with self._lock:
+            self.fault_injector = inj
+            if self._pack is not None:
+                self._pack.fault_hook = inj
+            if self.persist is not None:
+                self.persist.fault_hook = inj
+                if self.persist.wal is not None:
+                    self.persist.wal.fault_hook = inj
 
     def checkpoint_async(self) -> Optional[threading.Thread]:
         """Run a durable checkpoint on the supervised ``checkpointer``
@@ -500,6 +523,8 @@ class SegmentManager:
             return
         try:
             pack.metrics = self.obs.registry
+            pack.fault_hook = self.fault_injector
+            self._fault("pack.delta")
             for seg in removed:
                 pack.remove_segment(seg.seg_id)
             for seg in added:
@@ -616,12 +641,23 @@ class SegmentManager:
         sharded query; caller holds the lock): admit buckets most-recent-
         span first while they fit, then flip ``resident_default`` so
         buckets created by later deltas start on the device (enforcement
-        keeps the budget)."""
+        keeps the budget).  An admission that an injected ``admission.*``
+        fault crashes leaves its bucket cold — every stage fires its fault
+        point before it mutates anything — and lands in
+        ``stats()["health"]`` under ``tier_admission``: the query that
+        triggered the warm-up answers from the cold path, exactly.  Any
+        other error raises."""
+        from .resilience import FaultError
         for m in sorted(self._bucket_meta(pack), key=lambda m: -m["t_max"]):
             if (not m["resident"]
                     and pack.nbytes + m["nbytes"] <= self.tier.budget_bytes):
-                pack.admit_bucket(m["cap"])
-                self.obs.registry.counter("tier_admissions_total").inc()
+                try:
+                    admitted = pack.admit_bucket(m["cap"])
+                except FaultError as exc:
+                    self.supervisor.note_error("tier_admission", exc)
+                    continue
+                if admitted:
+                    self.obs.registry.counter("tier_admissions_total").inc()
         pack.resident_default = True
         self._update_tier_gauges(pack)
 
@@ -650,7 +686,10 @@ class SegmentManager:
         the lock only if the pack and the bucket's mutation generation
         are unchanged (a delta that landed mid-upload discards the stale
         upload — the bucket stays cold and correct).  Returns the buckets
-        admitted."""
+        admitted.  Fault point ``prefetch.round`` fires at entry (the
+        supervisor retries a crashed round; prefetch only moves residency,
+        so a crash at any stage changes no answer)."""
+        self._fault("prefetch.round")
         if self.device.type == "cuda":
             import torch
             torch.cuda.set_device(self.device)
@@ -737,6 +776,7 @@ class SegmentManager:
                                     device=self.device)
         with self._lock:
             pack.sync_alive(self.alive)
+            pack.fault_hook = self.fault_injector
             if self.epoch == epoch:
                 self._pack = pack
                 if self.tier is not None and hasattr(pack, "admit_bucket"):
@@ -820,7 +860,10 @@ class SegmentManager:
                                            Optional[SealedSegment]]]:
         """Build every replacement segment in the plan — the expensive part,
         run without the lock (this is what ``compact_async`` moves off the
-        ingest/query path).  Returns ``(victims, replacement)`` pairs."""
+        ingest/query path).  Returns ``(victims, replacement)`` pairs.
+        Fault point ``compaction.execute`` fires before any rebuild — a
+        crash here mutates nothing."""
+        self._fault("compaction.execute")
         t0 = time.perf_counter()
         built: List[Tuple[List[SealedSegment], Optional[SealedSegment]]] = []
         for seg in plan.gc:
@@ -1036,6 +1079,17 @@ class SegmentManager:
                              return_stats=return_stats, trace=trace, **kw)
         return QueryResult(out + (trace.finish(),), degraded=out.degraded,
                            reasons=out.reasons)
+
+    def query_grouped(self, groups, trace=None, observe_group=None):
+        """Continuous filtered batching: answer several heterogeneous
+        :class:`~repro_torch.streaming.query.GroupQuery` request groups in
+        one pass, sharing each sealed bucket's device block across every
+        group active there; see
+        :func:`repro_torch.streaming.query.query_segments_grouped` (answers
+        are bit for bit the per-group :meth:`query` answers)."""
+        from .query import query_segments_grouped
+        return query_segments_grouped(self, groups, trace=trace,
+                                      observe_group=observe_group)
 
     def stats(self) -> dict:
         """Lifecycle counters, per-segment occupancy, and the ``obs``

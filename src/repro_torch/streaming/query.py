@@ -35,10 +35,15 @@ With ``StreamConfig(device_budget_bytes=...)`` some buckets are cold
 window to the tier's prefetch predictor, every cold dispatch counts one
 ``tier_miss_total``, buckets the planner prices ``admit_cheaper`` are
 admitted for this very query, and a deadline refuses cold modes it cannot
-pay for (mode ``skip``, a degraded answer).
+pay for (mode ``skip``, a degraded answer).  An admission that fails
+leaves the bucket cold: the query dispatches the cold view, exactly, and
+the error lands in ``stats()["health"]``.
 
-The grouped (continuous batching) entry point of the reference is not
-ported yet (ROADMAP Queue A item 11).
+:func:`query_segments_grouped` (continuous filtered batching) answers
+several :class:`GroupQuery` request groups in one pass: one snapshot, and
+per sealed bucket one kernel launch per filter class over the bucket's
+block, shared by every group active there — bit for bit the per-group
+:func:`query_segments` answers.
 """
 from __future__ import annotations
 
@@ -52,10 +57,11 @@ from ..core import Filter
 from ..distributed.segment_shards import host_topk
 from ..obs.metrics import NULL_REGISTRY
 from ..obs.trace import NULL_TRACE, block_ready
-from .resilience import Deadline, QueryResult
+from .resilience import Deadline, FaultError, QueryResult
 from .segments import SegmentQueryStats
 
-__all__ = ["host_topk", "merge_topk", "temporal_bounds", "query_segments"]
+__all__ = ["host_topk", "merge_topk", "temporal_bounds", "query_segments",
+           "GroupQuery", "query_segments_grouped"]
 
 
 def temporal_bounds(filt: Optional[Filter], time_dim: int
@@ -341,8 +347,16 @@ def query_segments(manager, queries: np.ndarray, filt: Optional[Filter],
                     admitted = {}
                     for cap, dec in plan.items():
                         if dec.reason == "admit_cheaper":
-                            nbv = manager.tier_admit(cap,
-                                                     expect_epoch=epoch)
+                            try:
+                                nbv = manager.tier_admit(cap,
+                                                         expect_epoch=epoch)
+                            except FaultError as exc:
+                                # an injected crash: the bucket stays
+                                # cold; dispatch the exact cold view and
+                                # record the failure
+                                manager.supervisor.note_error(
+                                    "tier_admission", exc)
+                                continue
                             if nbv is not None:
                                 admitted[cap] = nbv
                     if admitted:
@@ -373,6 +387,7 @@ def query_segments(manager, queries: np.ndarray, filt: Optional[Filter],
                         if deadline.expired():
                             _degrade("deadline_sealed_scan", len(bvs) - i)
                             break
+                        manager._fault("query.bucket")
                         sub = dataclasses.replace(scan_pack, buckets=(bv,))
                         gg, dd = _scan_buckets(manager, sub, queries, filt,
                                                k, t_lo, t_hi, metric, trace,
@@ -455,3 +470,152 @@ def query_segments(manager, queries: np.ndarray, filt: Optional[Filter],
         (time.perf_counter() - t_all) * 1e3)
     out = (out_g, out_d, stats) if return_stats else (out_g, out_d)
     return QueryResult(out, degraded=bool(reasons), reasons=reasons)
+
+
+@dataclasses.dataclass
+class GroupQuery:
+    """One request group of a heterogeneous batched query: its own query
+    rows, filter, ``k`` and per-call overrides (deadline, read path) — the
+    unit :func:`query_segments_grouped` batches into shared per-bucket
+    dispatches."""
+
+    queries: np.ndarray
+    filt: Optional[Filter] = None
+    k: int = 10
+    ef: int = 64
+    deadline_ms: Optional[float] = None
+    read_path: Optional[str] = None
+
+
+def query_segments_grouped(manager, groups, trace=None, observe_group=None):
+    """Continuous filtered batching: answer several heterogeneous
+    :class:`GroupQuery` request groups in one pass over the manager's
+    state — one snapshot, one delta scan per group, and one shared
+    per-bucket sealed-pack dispatch in which every group active in a
+    bucket reads the same device block
+    (:func:`repro_torch.distributed.segment_shards.pack_search_blocks_grouped`:
+    one B1 launch per filter class).
+
+    Answers are bit for bit what per-group :func:`query_segments` calls
+    return: each candidate's distance is computed the same way whatever
+    the launch, a group's bucket skip set matches its solo temporal
+    pruning, and each group merges with its own ``k`` and temporal mask
+    through the same exact ``(dist, gid)`` merge.
+
+    The shared fast path needs a bucketed fp32 pack (``n_shards >= 1``,
+    ``incremental_pack``, ``quantize=None``) with every group on the
+    ``"scan"`` read path; anything else falls back to per-group
+    :func:`query_segments` calls — the same answers, no block sharing.
+
+    Per-group deadlines (``GroupQuery.deadline_ms``, default
+    ``StreamConfig.query_deadline_ms``) drop only the lagging group from
+    the remaining buckets and mark its :class:`~.resilience.QueryResult`
+    degraded with ``deadline_sealed_scan`` skip counts, as the solo path
+    does.  ``observe_group(group_idx, cap, rows=, active_rows=,
+    candidates=, candidate_slots=, cache_hit=)`` attributes each shared
+    bucket dispatch to the groups that read it (per-tenant
+    ``BucketStats``).  Returns one ``QueryResult((gids [b_i, k_i], dists
+    [b_i, k_i]))`` per group, in input order.
+    """
+    trace = NULL_TRACE if trace is None else trace
+    obs = getattr(manager, "obs", None)
+    registry = obs.registry if obs is not None else NULL_REGISTRY
+    cfg = manager.cfg
+    groups = list(groups)
+    if not groups:
+        return []
+    rps = [g.read_path if g.read_path is not None else cfg.read_path
+           for g in groups]
+    shared_ok = (cfg.n_shards >= 1 and cfg.incremental_pack
+                 and cfg.quantize is None
+                 and all(rp == "scan" for rp in rps))
+    if not shared_ok:
+        return [query_segments(manager, g.queries, g.filt, k=g.k, ef=g.ef,
+                               trace=trace, read_path=g.read_path,
+                               deadline_ms=g.deadline_ms)
+                for g in groups]
+
+    t_all = time.perf_counter()
+    qs = [np.atleast_2d(np.asarray(g.queries, np.float32)) for g in groups]
+    bounds = [temporal_bounds(g.filt, manager.time_dim) for g in groups]
+    deadlines = [Deadline.start(g.deadline_ms if g.deadline_ms is not None
+                                else cfg.query_deadline_ms) for g in groups]
+    reasons: List[dict] = [{} for _ in groups]
+
+    def _degrade(gi: int, reason: str, n: int = 1) -> None:
+        reasons[gi][reason] = reasons[gi].get(reason, 0) + int(n)
+        registry.counter(
+            f'query_degraded_total{{reason="{reason}"}}').inc(n)
+
+    observe = (obs.bucket_stats.observe
+               if obs is not None and obs.bucket_stats is not None else None)
+    metric = cfg.index_cfg.metric
+    with trace.span("snapshot"):
+        epoch, segments, delta = manager.snapshot()
+
+    blocks_g: List[List[np.ndarray]] = [[] for _ in groups]
+    blocks_d: List[List[np.ndarray]] = [[] for _ in groups]
+
+    if delta.n_live > 0:
+        for gi, (q, (t_lo, t_hi)) in enumerate(zip(qs, bounds)):
+            if delta.t_max >= t_lo and delta.t_min <= t_hi:
+                with trace.span("delta_scan", rows=delta.n_live, group=gi):
+                    ids, dd = delta.query(q, groups[gi].filt, groups[gi].k,
+                                          metric=metric)
+                    block_ready((ids, dd))
+                blocks_g[gi].append(ids)
+                blocks_d[gi].append(dd)
+
+    live_segs = [s for s in segments if s.n_live > 0]
+    if live_segs:
+        from ..distributed.segment_shards import (PackView,
+                                                  pack_search_blocks_grouped)
+        # None when every snapshot segment lost its last live point to a
+        # racing delete — nothing sealed to search
+        pack = manager.shard_pack(epoch, live_segs)
+        if isinstance(pack, PackView):
+            tier = getattr(manager, "tier", None)
+            on_cold = None
+            if tier is not None:
+                for t_lo, t_hi in bounds:
+                    tier.note_window(t_lo, t_hi)
+
+                def on_cold(cap, stage_bytes, _reg=registry):
+                    _reg.counter("tier_miss_total").inc()
+            pk_groups = [(qs[gi], groups[gi].filt, groups[gi].k,
+                          bounds[gi][0], bounds[gi][1])
+                         for gi in range(len(groups))]
+            with trace.span("sealed_scan_grouped", groups=len(groups)):
+                per = pack_search_blocks_grouped(
+                    pack, pk_groups, metric=metric, trace=trace,
+                    observe=observe, on_cold=on_cold, deadlines=deadlines,
+                    on_expired=lambda gi, n:
+                        _degrade(gi, "deadline_sealed_scan", n),
+                    fault=lambda: manager._fault("query.bucket"),
+                    observe_group=observe_group)
+            for gi, bl in enumerate(per):
+                for gg, dd in bl:
+                    blocks_g[gi].append(gg)
+                    blocks_d[gi].append(dd)
+            if tier is not None:
+                manager.maybe_prefetch()
+
+    out: List[QueryResult] = []
+    for gi, g in enumerate(groups):
+        b = qs[gi].shape[0]
+        registry.counter("query_batches_total").inc()
+        registry.counter("query_rows_total").inc(b)
+        if reasons[gi]:
+            registry.counter("query_degraded_queries_total").inc()
+        if not blocks_g[gi]:
+            og = np.full((b, g.k), -1, np.int64)
+            od = np.full((b, g.k), np.inf, np.float32)
+        else:
+            with trace.span("merge", blocks=len(blocks_g[gi]), group=gi):
+                og, od = merge_topk(blocks_g[gi], blocks_d[gi], g.k)
+                og, od = _alive_filter(manager, og, od)
+        out.append(QueryResult((og, od), degraded=bool(reasons[gi]),
+                               reasons=reasons[gi]))
+    registry.histogram("query_ms").observe(
+        (time.perf_counter() - t_all) * 1e3)
+    return out

@@ -1,31 +1,138 @@
-"""Resilience substrate used by the default streaming path: supervised
-background workers and query deadlines.
+"""Resilience substrate: fault injection, supervised workers, deadlines.
+
+* :class:`FaultInjector` — a deterministic, seed-driven fault hook.  It is
+  a valid ``fault_hook(point)`` callable, so one instance plugs into every
+  named fault point of the runtime (:data:`FAULT_POINTS`): the WAL, the
+  checkpoint, the pack's admission trio and the manager's lifecycle
+  points.  Faults fire from an explicit per-point hit schedule or at a
+  rate, drawn by hashing ``(seed, point, hit)`` with crc32 exactly as the
+  reference does, so one seed fires the same ``(point, hit)`` list in both
+  packages whatever the thread interleaving.  ``delays=`` stalls instead
+  of raising.
 
 * :class:`Supervisor` — owns the manager's background workers
-  (``compact_async``).  A supervised run retries a failing worker with
-  bounded exponential backoff; a worker that keeps failing past its error
-  budget trips a sticky per-worker ``degraded`` flag.  Every error lands
-  in the obs registry (``worker_errors_total{worker=...}`` et al.) and in
-  the :meth:`Supervisor.health` snapshot that ``SegmentManager.stats()``
+  (``compact_async``, ``maybe_prefetch``, ``checkpoint_async``).  A
+  supervised run retries a failing worker with bounded exponential
+  backoff; a worker that keeps failing past its error budget trips a
+  sticky per-worker ``degraded`` flag.  Every error lands in the obs
+  registry (``worker_errors_total{worker=...}`` et al.) and in the
+  :meth:`Supervisor.health` snapshot that ``SegmentManager.stats()``
   surfaces under ``"health"``.
 
 * :class:`Deadline` / :class:`QueryResult` — per-query time budgets.  The
-  query path checks :meth:`Deadline.expired` between segment searches
-  and, on overrun, returns the partial result explicitly marked
-  ``degraded=True`` with per-reason skip counts.  ``QueryResult``
+  query path checks :meth:`Deadline.expired` between bucket dispatches and
+  segment searches and, on overrun, returns the partial result explicitly
+  marked ``degraded=True`` with per-reason skip counts.  ``QueryResult``
   subclasses ``tuple`` so ``g, d = manager.query(...)`` unpacks as usual.
 
-Fault injection (the reference's ``FaultInjector`` and its fault points)
-is not ported yet.
+The invariant all of this serves: no fault schedule yields a silently
+wrong answer — every query outcome is bit for bit what the fault-free run
+produces after recovery, or an explicit error / explicitly ``degraded``
+result.
 """
 from __future__ import annotations
 
 import threading
 import time
 import traceback
-from typing import Callable, Dict, Optional, Tuple
+import zlib
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
-__all__ = ["Supervisor", "Deadline", "QueryResult"]
+__all__ = ["FAULT_POINTS", "FaultError", "FaultInjector", "Supervisor",
+           "Deadline", "QueryResult"]
+
+# The named fault points threaded through the runtime (the reference's
+# catalog, in its order).  An injector may name any subset.
+FAULT_POINTS = (
+    "wal.append",          # mid-frame during a WAL append (persistence.py)
+    "wal.fsync",           # before the batched fsync (persistence.py)
+    "segment.write",       # artifact staged, before fsync+rename
+    "manifest.rename",     # state written, before the atomic swap
+    "pack.delta",          # before an incremental pack delta applies
+    "admission.stage",     # tier admission: host-side stage (under lock)
+    "admission.upload",    # tier admission: side-stream device upload
+    "admission.install",   # tier admission: generation-checked install
+    "prefetch.round",      # top of one background prefetch round
+    "compaction.execute",  # start of a compaction execute phase
+    "query.bucket",        # before one per-bucket dispatch (deadline path)
+)
+
+
+class FaultError(RuntimeError):
+    """The exception every injected crash raises: a distinct type, so a
+    harness can tell an injected fault (recover) from a real bug (fail)."""
+
+
+class FaultInjector:
+    """Deterministic, seed-driven fault-point hook (thread-safe).
+
+    Callable as ``injector(point)``.  Firing is decided per ``(point,
+    hit)`` (hits counted from 1 per point):
+
+    * ``schedule={"wal.append": (2,)}`` crashes the 2nd ``wal.append``;
+    * ``rate=0.1, seed=s`` crashes about 10% of the hits at the points in
+      ``points`` (default: all), chosen by ``crc32(f"{seed}|{point}|{hit}")
+      / 2**32 < rate`` — the reference's draw, so both packages replay the
+      same fault list from one seed;
+    * ``delays={"query.bucket": 0.05}`` sleeps instead of raising.
+
+    ``max_faults`` bounds the injected crashes (stalls do not count);
+    ``disarm()`` turns the injector into a pure hit counter.
+    """
+
+    def __init__(self, schedule: Optional[Dict[str, Iterable[int]]] = None,
+                 seed: int = 0, rate: float = 0.0,
+                 points: Optional[Sequence[str]] = None,
+                 delays: Optional[Dict[str, float]] = None,
+                 max_faults: Optional[int] = None):
+        self.schedule = {p: frozenset(int(i) for i in hits)
+                         for p, hits in (schedule or {}).items()}
+        self.seed = int(seed)
+        self.rate = float(rate)
+        self.points = None if points is None else frozenset(points)
+        self.delays = dict(delays or {})
+        self.max_faults = max_faults
+        self.armed = True
+        self.hits: Dict[str, int] = {}
+        self.fired: list = []            # (point, hit) per crash
+        self._lock = threading.Lock()
+
+    def _chance(self, point: str, n: int) -> bool:
+        """Deterministic pseudo-random draw for hit ``n`` of ``point``."""
+        if self.rate <= 0.0:
+            return False
+        if self.points is not None and point not in self.points:
+            return False
+        h = zlib.crc32(f"{self.seed}|{point}|{n}".encode())
+        return (h / 2.0 ** 32) < self.rate
+
+    def __call__(self, point: str) -> None:
+        """Count one hit of ``point``; stall or raise if scheduled."""
+        with self._lock:
+            n = self.hits.get(point, 0) + 1
+            self.hits[point] = n
+            if not self.armed:
+                return
+            crash = (n in self.schedule.get(point, ())
+                     or self._chance(point, n))
+            if crash and (self.max_faults is None
+                          or len(self.fired) < self.max_faults):
+                self.fired.append((point, n))
+            else:
+                crash = False
+            delay = self.delays.get(point) if not crash else None
+        if delay:
+            time.sleep(delay)
+        if crash:
+            raise FaultError(f"injected fault at {point} (hit {n})")
+
+    def disarm(self) -> None:
+        """Stop injecting (hit counting continues)."""
+        self.armed = False
+
+    def arm(self) -> None:
+        """Resume injecting after :meth:`disarm`."""
+        self.armed = True
 
 
 class _WorkerState:

@@ -50,7 +50,9 @@ def test_import_loads_no_jax():
             "repro_torch.distributed, repro_torch.kernels.graph_topk, "
             "repro_torch.streaming.planner, repro_torch.kernels.flash_decode, "
             "repro_torch.core.baselines, repro_torch.streaming.persistence, "
-            "repro_torch.streaming.tiering, "
+            "repro_torch.streaming.tiering, repro_torch.streaming.chaos, "
+            "repro_torch.serving.tenancy, repro_torch.serving.service, "
+            "repro_torch.serving.workload, "
             "repro_torch.configs, repro_torch.models, repro_torch.serving, "
             "repro_torch.launch.serve\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -725,3 +725,165 @@ def test_decode_step_through_b5_matches_cpu(card):
     for a, b in zip(out["cpu"][:3], out["card"][:3]):
         np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-4,
                                    atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# B1's grouped launch (the serving tier) and a chaos tape on the card
+# ---------------------------------------------------------------------------
+def _grouped_inputs(card, G, S, n, d, bq, seed, kind_filters):
+    x, s = make_dataset_device(S * n, d, 3, seed=seed, device=card)
+    xs, ss = x.reshape(S, n, d), s.reshape(S, n, 3)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    q = torch.randn((G, bq, d), generator=gen, device=card)
+    params = torch.stack([torch.as_tensor(
+        ops.encode_filter(f, 3, mpad=3)[1], device=card)
+        for f in kind_filters])
+    return q, xs, ss, params
+
+
+def test_grouped_filtered_topk_matches_twin(card):
+    """The grouped launch against its twin (each group's plain twin over
+    the shard stack), both query layouts."""
+    from repro_torch.kernels.filtered_topk import (
+        filtered_topk_grouped_call, filtered_topk_grouped_plain)
+    boxes = [make_box_filter(3, r, seed=i) for i, r in
+             enumerate((0.1, 0.3, 0.6, 0.9))]
+    q, xs, ss, p = _grouped_inputs(card, 4, 3, 2000, 96, 21, 5, boxes)
+    q4 = q[:, None].expand(4, 3, 21, 96).contiguous() + 0.01
+    for qq in (q, q4):
+        for metric in ("l2", "ip"):
+            kd, ki = filtered_topk_grouped_call(qq, xs, ss, p, "box", 32,
+                                                metric)
+            torch.cuda.synchronize()
+            td, ti = filtered_topk_grouped_plain(qq, xs, ss, p, "box", 32,
+                                                 metric)
+            assert kd.shape == (4, 3, 21, 32)
+            qf = qq.reshape(-1, 96)
+            tol = _tol(qf, xs.reshape(-1, 96)).max()
+            _assert_topk_close(kd.reshape(-1, 21, 32), ki.reshape(-1, 21, 32),
+                               td.reshape(-1, 21, 32), ti.reshape(-1, 21, 32),
+                               tol)
+
+
+@pytest.mark.parametrize("n", [3000, 20000])
+def test_grouped_filtered_topk_equals_solo_launches(card, n):
+    """``sharded_filtered_topk_grouped`` on the card: two filter classes
+    (box kpad 16, ball kpad 32), uneven group row counts, a singleton and
+    an unfiltered group — every group bit for bit its solo launch, where
+    the grouped launch's candidate splits differ from the solo one's."""
+    import importlib
+    from repro_torch.kernels.filtered_topk import launch_config
+    b1 = importlib.import_module("repro_torch.kernels.filtered_topk")
+    S, d = 2, 96
+    x, s = make_dataset_device(S * n, d, 3, seed=n, device=card)
+    xs, ss = x.reshape(S, n, d), s.reshape(S, n, 3)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(n)
+    ball = BallFilter(center=np.asarray([0.5, 0.5]), radius=0.3)
+    specs = [(3, make_box_filter(3, 0.3, seed=1), 10),
+             (200, make_box_filter(3, 0.6, seed=2), 16),
+             (17, make_box_filter(3, 0.9, seed=3), 9),
+             (5, ball, 20), (64, ball, 32), (7, None, 10),
+             (2, IntervalFilter(dim=2, lo=0.4), 100)]
+    groups = [(torch.randn((b, d), generator=gen, device=card), f, k)
+              for b, f, k in specs]
+    before = b1.grouped_launch_stats()
+    got = ops.sharded_filtered_topk_grouped(groups, xs, ss, m=3)
+    after = b1.grouped_launch_stats()
+    assert after["launches"] - before["launches"] == 2     # box, ball
+    assert after["groups"] - before["groups"] == 5
+    torch.cuda.synchronize()
+    for (q, f, k), (gi, gd) in zip(groups, got):
+        si, sd = ops.sharded_filtered_topk(q, xs, ss, f, k, m=3)
+        assert torch.equal(gi, si) and torch.equal(gd, sd)
+    solo = launch_config(S, 200, n, d, 16, 0, 0, 132)["splits"]
+    grouped = launch_config(3 * S, 200, n, d, 16, 0, 0, 132)["splits"]
+    assert (solo != grouped) == (n == 20000)
+
+
+def test_grouped_filtered_topk_copies_no_block(card):
+    """Eight groups over a 154 MB shard stack: the launch allocates its
+    outputs and split scratch only — never a copy of the block."""
+    S, n, d = 2, 200_000, 96
+    x, s = make_dataset_device(S * n, d, 3, seed=3, device=card)
+    xs, ss = x.reshape(S, n, d), s.reshape(S, n, 3)
+    block = xs.numel() * 4
+    gen = torch.Generator(device=card)
+    gen.manual_seed(3)
+    groups = [(torch.randn((16, d), generator=gen, device=card),
+               make_box_filter(3, 0.2 + 0.1 * i, seed=i), 10)
+              for i in range(8)]
+    ops.sharded_filtered_topk_grouped(groups, xs, ss, m=3)   # warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = ops.sharded_filtered_topk_grouped(groups, xs, ss, m=3)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert len(out) == 8 and extra < block // 4, (extra, block)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_chaos_tape_on_card(card, quantize, tmp_path):
+    """A short lifecycle tape under seeded crashes on a persistent,
+    budgeted manager on the card: every injected crash recovered, every
+    answer (deadline queries included) the fault-free oracle's bit for
+    bit, every fault point hit."""
+    from repro_torch.core import CubeGraphConfig
+    from repro_torch.streaming import (FAULT_POINTS, FaultInjector,
+                                       SegmentManager, StreamConfig)
+    from repro_torch.streaming.chaos import (CRASH_POINTS, apply_op,
+                                             lifecycle_ops, run_chaos)
+    d = 64
+    ops_ = lifecycle_ops(2, 4000, d)
+    base = dict(time_dim=2, seal_max_points=1 << 30, n_shards=2,
+                compact_max_segments=3, quantize=quantize, graph_ef=128,
+                wal_fsync_every=4,
+                index_cfg=CubeGraphConfig(n_layers=2, m_intra=8, m_cross=3))
+    oracle = SegmentManager(d, 3, StreamConfig(**base), device=card)
+    want = [apply_op(oracle, op) for op in ops_]
+    root = str(tmp_path / "p")
+    cfg = StreamConfig(**base, persist_dir=root,
+                       device_budget_bytes=oracle._pack.nbytes // 3)
+    inj = FaultInjector(seed=11, rate=0.18, max_faults=5,
+                        points=CRASH_POINTS)
+
+    def restore():
+        m = SegmentManager.restore(root, cfg=cfg, device=card)
+        m.install_fault_injector(inj)
+        return m
+
+    m = SegmentManager(d, 3, cfg, device=card)
+    m.install_fault_injector(inj)
+    rec = run_chaos(m, ops_, want, inj, restore, deadline_ms=60_000.0)
+    assert rec["faults"] >= 1 and rec["queries"] > 0
+    assert not [p for p in FAULT_POINTS if not inj.hits.get(p)], inj.hits
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_deadline_path_equals_bulk_on_card(card, quantize):
+    """A query with a deadline it meets dispatches bucket by bucket (and
+    reranks an int8 pack per bucket); its answer is the bulk dispatch's
+    bit for bit — the int8 rerank scores with B4, whose order depends on
+    d alone, not on the candidate list's width."""
+    from repro_torch.core import CubeGraphConfig
+    from repro_torch.streaming import SegmentManager, StreamConfig
+    rng = np.random.default_rng(4)
+    cfg = StreamConfig(time_dim=2, seal_max_points=1 << 30, n_shards=2,
+                       quantize=quantize,
+                       index_cfg=CubeGraphConfig(n_layers=2, m_intra=8,
+                                                 m_cross=3))
+    m = SegmentManager(96, 3, cfg, device=card)
+    for i, n in enumerate((300, 700, 1500, 3100)):
+        x = rng.normal(size=(n, 96)).astype(np.float32)
+        s = rng.uniform(size=(n, 3))
+        s[:, 2] = i + np.linspace(0.0, 0.9, n)
+        m.ingest(x, s)
+        m.seal()
+    q = rng.normal(size=(64, 96)).astype(np.float32)
+    for f in (None, IntervalFilter(dim=2, lo=0.5, hi=2.5)):
+        g0, d0 = m.query(q, f, k=10)
+        r = m.query(q, f, k=10, deadline_ms=60_000.0)
+        assert not r.degraded
+        assert np.array_equal(g0, r[0]) and np.array_equal(d0, r[1])

@@ -261,9 +261,9 @@ def test_streaming_store_matches_reference(rag):
 @pytest.mark.parametrize("what", ["restore", "snapshot_to", "budget",
                                   "grouped"])
 def test_unported_store_features_raise(rag, what, tmp_path):
-    """Grouped retrieval (item 11) still raises naming its item; restore,
-    snapshot_to and device_budget_bytes (items 8, 9) are ported and raise
-    only on misuse, as in the reference."""
+    """Restore, snapshot_to, device_budget_bytes (items 8, 9) and grouped
+    retrieval (item 11) are ported and raise only on misuse, as in the
+    reference."""
     docs = rag["store"].docs[:50]
     if what == "restore":
         with pytest.raises(FileNotFoundError):
@@ -278,9 +278,7 @@ def test_unported_store_features_raise(rag, what, tmp_path):
         with pytest.raises(ValueError, match="streaming store"):
             rag["store"].snapshot_to(str(tmp_path / "snap"))
     else:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue A item 11"):
-            rag["store"].retrieve_grouped([])
+        assert rag["store"].retrieve_grouped([]) == {}
 
 
 # ---------------------------------------------------------------------------
