@@ -27,7 +27,14 @@ drives the generation side at the full width of ``internvl2-2b`` in bf16
 run, decode checked against a full forward, and ``RAGPipeline.answer``
 over a static ``DocumentStore``; the decode kernel (B5) is held against
 its twin on the inputs one layer of a recorded batcher tick handed it,
-and timed there.  Last (phase 8) it serves a geo-temporal workload of 4
+and timed there.  Phase 7b then serves the other generation families at
+their published widths, each model freed before the next: gemma3-1b
+(sliding window; B5 windowed) and qwen2-moe-a2.7b through the batcher,
+falcon-mamba-7b, zamba2-2.7b (B5 at head width 80) and whisper-medium
+(frames in, B5 over its cross K/V) through ``serve_step.generate``;
+each family's decode is held to a forward (the state families block by
+block), and B5 is checked and timed on a windowed, a global and an hd-80
+call it made.  Last (phase 8) it serves a geo-temporal workload of 4
 tenants over one shared substrate through ``CubeGraphService`` (kernel
 B1's grouped launch), checks isolation, recall and a recorded flush
 answered grouped against the same requests answered solo, bit for bit,
@@ -42,6 +49,8 @@ does not hold the port's sources.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import gc
 import importlib
 import json
@@ -108,6 +117,30 @@ N_FORWARD = 2           # requests whose decode logits are held to a forward
 # kernels), about ten per layer over 24 layers: as a random walk about
 # sqrt(240) x 0.2% = 3% of the logit scale; 0.15 leaves a 5x margin.
 LOGIT_TOL = 0.15
+# Generation families (7b): each at its published width in bf16, random
+# weights drawn on the card from SEED, freed before the next; depth is
+# never cut.  "batcher" families run through a ContinuousBatcher (prompt
+# lengths drawn in [lo, hi]), the others through serve_step.generate
+# (one batch of `prompt` tokens; whisper with frames [batch, 1500, d]).
+# gemma3's prompts pass its 512-token window; qwen2-moe's 8 requests
+# fill the 8 slots.  The SSM and hybrid families hold REPLAY decode steps
+# from position 0 to a forward over the same tokens, block by block.
+FAMILIES = (
+    ("gemma3-1b", dict(run="batcher", slots=8, max_len=4096, requests=16,
+                       lo=600, hi=3000, new=32)),
+    ("qwen2-moe-a2.7b", dict(run="batcher", slots=8, max_len=2048,
+                             requests=8, lo=512, hi=1536, new=16)),
+    ("falcon-mamba-7b", dict(run="generate", batch=4, prompt=512, new=16)),
+    ("zamba2-2.7b", dict(run="generate", batch=4, prompt=512, new=16)),
+    ("whisper-medium", dict(run="generate", batch=2, prompt=64, new=16)),
+)
+FAMILY_PROFILE_STEP = 8     # the decode step traced with torch.profiler
+FAMILY_RECORD_STEP = 12     # the decode step whose B5 inputs are recorded:
+# gemma3's layer 1 (window 512) and layer 6 (global), zamba2's group 5
+# (hd 80); as (arch, B5 call within the step, name)
+FAMILY_RECORDS = (("gemma3-1b", 0, "windowed"), ("gemma3-1b", 5, "global"),
+                  ("zamba2-2.7b", 4, "hd80"))
+REPLAY = 256
 N_RAG = 20_000          # documents (d_emb = D, metadata lon, lat, t)
 RAG_SPAN = 256          # tokens per document
 RAG_QUERIES = 8
@@ -1465,11 +1498,16 @@ def main_durability(torch, dev, keep: dict, nq: int) -> dict:
 # ---------------------------------------------------------------------------
 # Resilience (5d) and the serving tier (8)
 # ---------------------------------------------------------------------------
-def _kernel_mods():
+def _kernel_mods(generation: bool = False):
+    """The retrieval kernels' modules by kernel name (the launch counters);
+    with ``generation``, B2's and B5's too."""
+    mods = (("filtered_topk", "filtered_topk"), ("quant_topk", "quant_topk"),
+            ("graph_step", "graph_topk"))
+    if generation:
+        mods += (("pairwise_dist", "distance"),
+                 ("flash_decode", "flash_decode"))
     return {name: importlib.import_module(f"repro_torch.kernels.{mod}")
-            for name, mod in (("filtered_topk", "filtered_topk"),
-                              ("quant_topk", "quant_topk"),
-                              ("graph_step", "graph_topk"))}
+            for name, mod in mods}
 
 
 def main_chaos(torch, dev, n: int, d: int, seed: int) -> dict:
@@ -1949,7 +1987,8 @@ def measure_cold(torch, dev, name, rest, tier, q, k: int) -> None:
         f"vs tier_resident_bytes {gauges.get('tier_resident_bytes')}")
 
 
-def compare_decode(torch, q, k, v, lengths, what: str) -> float:
+def compare_decode(torch, q, k, v, lengths, what: str,
+                   window: int = -1) -> float:
     """B5 kernel vs twin on one input.  Both compute in fp32 and round the
     output once to q's dtype, so they differ by the summation order
     (fp32: within 2e-4, the reference's own kernel-test bound) and, in
@@ -1958,9 +1997,9 @@ def compare_decode(torch, q, k, v, lengths, what: str) -> float:
     difference."""
     from repro_torch.kernels.flash_decode import (flash_decode_call,
                                                   flash_decode_plain)
-    got = flash_decode_call(q, k, v, lengths)
+    got = flash_decode_call(q, k, v, lengths, window)
     torch.cuda.synchronize()
-    want = flash_decode_plain(q, k, v, lengths)
+    want = flash_decode_plain(q, k, v, lengths, window)
     check(got.dtype == q.dtype and got.shape == q.shape,
           f"{what}: output {got.dtype} {tuple(got.shape)}")
     tol = 2e-4 if q.dtype == torch.float32 else 1e-2
@@ -1997,6 +2036,32 @@ def phase_kernels_decode(torch, dev, seed: int, errs: dict) -> None:
     log(f"B5 vs twin: fp32 and bf16 x {len(shapes)} shapes (g 1..16, hd "
         f"64 / 128 / 256, ragged smax, lengths 0 and smax - 1) agree; max "
         f"|err| {errs['flash_decode']:.3g}")
+    # windowed rows and head width 80: window 0, windows that start inside
+    # a tile, gemma3's 512, windows longer than every prefix; zamba2's
+    # hd 80 (40 column pairs: the PV pass leaves 8 threads idle)
+    shapes = [(6, 4, 1100, 256, 0), (6, 4, 1100, 256, 37),
+              (8, 4, 4096, 256, 512), (6, 4, 1100, 256, 5000),
+              (5, 1, 700, 80, -1), (6, 1, 700, 80, 37), (6, 2, 700, 80, 0),
+              (4, 16, 300, 80, 512), (128, 1, 1024, 80, -1),
+              (8, 1, 2048, 128, 512), (7, 8, 999, 64, 70)]
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for bkv, g, smax, hd, window in shapes:
+            q, k, v = (torch.randn(shape, generator=gen, device=dev
+                                   ).to(dtype)
+                       for shape in ((bkv, g, hd), (bkv, smax, hd),
+                                     (bkv, smax, hd)))
+            lengths = torch.randint(0, smax, (bkv,), generator=gen,
+                                    device=dev, dtype=torch.int32)
+            lengths[0] = 0
+            lengths[1] = smax - 1
+            err = max(err, compare_decode(
+                torch, q, k, v, lengths, f"B5 {dtype} [{bkv}, {g}, {smax}, "
+                f"{hd}] window {window}", window))
+    errs["flash_decode"] = max(errs["flash_decode"], err)
+    log(f"B5 vs twin, windowed and hd 80: fp32 and bf16 x {len(shapes)} "
+        f"shapes (windows 0, 37, 70, 512, 5000 and global; hd 64 / 80 / "
+        f"128 / 256; lengths 0 and smax - 1) agree; max |err| {err:.3g}")
 
 
 def profile_tick(torch, step) -> dict:
@@ -2020,6 +2085,214 @@ def profile_tick(torch, step) -> dict:
                 top=[(name[:60], round(ms, 4)) for name, ms in top])
 
 
+def logits_close(torch, dec, fwd, what: str):
+    """Decode logits ``dec`` against a forward's ``fwd`` (``[steps,
+    vocab]`` each, fp32): |diff| <= LOGIT_TOL x the forward row's rms, and
+    the decode's argmax equals the forward's wherever the forward's top-2
+    gap exceeds that.  Returns (worst |diff| / rms, steps whose argmax was
+    checked, near-tie steps whose argmax differs)."""
+    rms = fwd.pow(2).mean(-1, keepdim=True).sqrt()
+    rel = ((dec - fwd).abs() / rms).max(-1).values
+    worst = float(rel.max())
+    check(bool((rel <= LOGIT_TOL).all()),
+          f"{what}: decode logits differ from the forward's by "
+          f"{worst:.4f} x rms > {LOGIT_TOL}")
+    top2 = torch.topk(fwd, 2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) / rms[:, 0] > LOGIT_TOL
+    agree = dec.argmax(-1) == fwd.argmax(-1)
+    check(bool(agree[sure].all()),
+          f"{what}: a greedy token differs from the forward's argmax where "
+          f"the top-2 gap exceeds the tolerance")
+    return worst, int(sure.sum()), int((~agree).sum())
+
+
+class RouteTape:
+    """The experts each MoE layer picked in a prefill-then-decode run,
+    forced on the forwards it is held to.  bf16 rounds the decode step
+    and the forward at different points, and with random weights about
+    a few percent of a token's top-4 choices out of 60 are near-ties that
+    then flip; a flipped expert moves the token's output by a whole
+    expert's share, which no logit tolerance absorbs.  Under the tape the
+    forward routes every position to the experts its prefill or decode
+    step chose (gates from the forward's own probabilities at those
+    experts), so the comparison holds the rest of the arithmetic.  The
+    flips are counted (``flips``: assignments the forward would have
+    chosen differently)."""
+
+    def __init__(self, torch, moe_mod, n_layers: int, n_req: int):
+        self.torch, self.mod, self.real = torch, moe_mod, moe_mod.route
+        self.n_layers, self.n_req = n_layers, n_req
+        self.calls, self.mode, self.flips, self.total = [], None, 0, 0
+
+    def __enter__(self):
+        self.mod.route = self.route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.real
+        return False
+
+    def on_forward(self, i: int) -> None:
+        self.mode, self.layer = i, 0
+
+    def route(self, xt, router, cfg):
+        if self.mode is None:                        # recording
+            out = self.real(xt, router, cfg)
+            self.calls.append(out[0])
+            return out
+        torch, i, l = self.torch, self.mode, self.layer
+        self.layer += 1
+        L, n = self.n_layers, self.n_req
+        steps = self.calls[n * L + l::L]             # decode steps, layer l
+        ids = torch.cat([self.calls[i * L + l]]
+                        + [st[i:i + 1] for st in steps])
+        probs = torch.softmax(torch.matmul(xt.float(), router), dim=-1)
+        own = torch.topk(probs, cfg.top_k, dim=-1).indices
+        self.flips += int((own.sort(-1).values != ids.sort(-1).values)
+                          .sum())
+        self.total += ids.numel()
+        gates = probs.gather(1, ids)
+        gates = gates / gates.sum(-1, keepdim=True)
+        return (ids, gates, probs) + self.mod.dispatch(ids, cfg)
+
+
+def hold_to_forward(torch, model, params, prompts, n_new: int,
+                    max_len: int, what: str, frames=None, on_forward=None):
+    """Each prompt prefilled into its own slot (ragged positions), then
+    ``n_new - 1`` greedy decode steps together; every step's logits held
+    to a full forward over the prompt and the tokens before it
+    (``frames``: whisper's, one row per prompt; ``on_forward(i)`` is
+    called before request i's forward).  Returns what
+    :func:`logits_close` returns, over all prompts."""
+    dev = params["final_norm"].device
+    n = len(prompts)
+    extra = [() if frames is None else (frames[i:i + 1],) for i in range(n)]
+    cache = model.init_cache(n, max_len, device=dev)
+    steps = [[] for _ in range(n)]
+    cur = torch.zeros((n, 1), dtype=torch.int32, device=dev)
+    for i in range(n):
+        view = {name: c[:, i:i + 1] for name, c in cache.items()}
+        lg, _ = model.prefill(params, torch.as_tensor(
+            prompts[i][None], device=dev), view, *extra[i])
+        steps[i].append(lg[0, -1].float())
+        cur[i, 0] = torch.argmax(lg[0, -1].float())
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.long,
+                       device=dev)
+    toks = [cur.clone()]
+    for _ in range(n_new - 1):
+        lg, cache = model.decode_step(params, cur, cache, pos)
+        for i in range(n):
+            steps[i].append(lg[i, 0].float())
+        cur = torch.argmax(lg[:, 0].float(), dim=-1)[:, None].to(torch.int32)
+        toks.append(cur.clone())
+        pos += 1
+    toks = torch.cat(toks, dim=1)
+    del cache
+    out = [0.0, 0, 0]
+    for i in range(n):
+        full = torch.cat([torch.as_tensor(prompts[i], device=dev).long(),
+                          toks[i, :-1].long()])[None]
+        if on_forward is not None:
+            on_forward(i)
+        fwd, _ = model.logits(params, full, *extra[i])
+        s = len(prompts[i])
+        r = logits_close(torch, torch.stack(steps[i]),
+                         fwd[0, s - 1:s - 1 + n_new].float(),
+                         f"{what} request {i}")
+        out = [max(out[0], r[0]), out[1] + r[1], out[2] + r[2]]
+    return tuple(out)
+
+
+def hold_layers(torch, model, params, tokens, what: str) -> dict:
+    """Decode steps from position 0 over ``tokens [b, n]``, held to the
+    forward layer by layer (the SSM and hybrid families).  Each layer's
+    decode steps (``mamba*_decode``; the hybrid's shared block through
+    ``attention_decode``, B5) take the forward's own input to that layer
+    and are held to the layer's forward output (``mamba*_scan``,
+    ``attention``): each row's |diff| <= LOGIT_TOL x the row's norm.  (The
+    element-wise rule of the logits does not fit here: the decode step
+    keeps in fp32 what the forward rounds to bf16 (the conv output, the
+    projections to dt, B and C), and over a block's 2 x 256 x 4096
+    outputs a few reach 0.151 x the row's rms, in falcon-mamba's block 16
+    on the card; the largest is logged.)  Beside that the decode stack
+    runs free on its own hidden states, and its divergence from the
+    forward's is logged: the two paths' bf16 rounding points differ, and
+    their hidden states drift apart by about 0.01 of their norm a block
+    (0.64 after falcon-mamba's 64 on the card), so at full depth their
+    logits differ by several times their rms and an end-to-end check
+    would hold nothing.  Returns the worst held ratio, the largest
+    element ratio and the free divergence after each block."""
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import (attention, attention_decode,
+                                           embed, mlp, rms_norm)
+    from repro_torch.models.transformer import _layer
+    cfg, dev = model.cfg, params["final_norm"].device
+    b, n = tokens.shape
+    eps, chunk = cfg.norm_eps, model._chunk(n)
+    if cfg.family == "ssm":
+        blocks = [("ssm", _layer(params["layers"], i))
+                  for i in range(cfg.n_layers)]
+        scan, step = ssm.mamba1_scan, ssm.mamba1_decode
+    else:
+        blocks = []
+        for g in range(model.n_groups):
+            pg = _layer(params["ssm_layers"], g)
+            blocks += [("ssm", _layer(pg, j)) for j in range(cfg.attn_every)]
+            blocks.append(("attn", params["shared"]))
+        scan, step = ssm.mamba2_scan, ssm.mamba2_decode
+    positions = torch.arange(n, device=dev)[None, :]
+
+    def decode_block(kind, p, h):
+        """The block's decode steps over ``h [b, n, d]`` from a zero
+        state."""
+        if kind == "ssm":
+            zero = model.init_cache(b, 1, device=dev)
+            conv, st = zero["conv"][0], zero["ssm"][0]
+            ys = []
+            for t in range(n):
+                y, conv, st = step(h[:, t:t + 1], p["ssm"], cfg, conv, st)
+                ys.append(y)
+            return torch.cat(ys, dim=1)
+        ck = torch.zeros((b, cfg.n_kv, n, cfg.hd), dtype=h.dtype,
+                         device=dev)
+        cv = torch.zeros_like(ck)
+        ys = []
+        for t in range(n):
+            pos = torch.full((b,), t, dtype=torch.long, device=dev)
+            ys.append(attention_decode(
+                h[:, t:t + 1], p["attn"], cfg, ck, cv, pos,
+                pos.to(torch.int32).repeat_interleave(cfg.n_kv),
+                model.window))
+        return torch.cat(ys, dim=1)
+
+    x = embed(tokens, params["embed"])
+    x_free, worst, elem, drift = x.clone(), 0.0, 0.0, []
+    for li, (kind, p) in enumerate(blocks):
+        ln = p["ln"] if kind == "ssm" else p["ln1"]
+        h = rms_norm(x, ln, eps)
+        if kind == "ssm":
+            y = scan(h, p["ssm"], cfg, chunk)[0]
+        else:
+            y = attention(h, p["attn"], cfg, positions, model.window)
+        dec = decode_block(kind, p, h)
+        diff = dec.float() - y.float()
+        rel = float((diff.norm(dim=-1) / y.float().norm(dim=-1)).max())
+        worst = max(worst, rel)
+        elem = max(elem, float((diff.abs() / y.float().pow(2).mean(
+            -1, keepdim=True).sqrt()).max()))
+        check(rel <= LOGIT_TOL, f"{what} block {li} ({kind}): a decode "
+              f"row differs from the forward's by {rel:.4f} of its norm > "
+              f"{LOGIT_TOL}")
+        x_free = x_free + decode_block(kind, p, rms_norm(x_free, ln, eps))
+        x = x + y
+        if kind == "attn":
+            x = x + mlp(rms_norm(x, p["ln2"], eps), p["mlp"])
+            x_free = x_free + mlp(rms_norm(x_free, p["ln2"], eps), p["mlp"])
+        drift.append(float((x_free.float() - x.float()).norm()
+                           / x.float().norm()))
+    return dict(worst=worst, elem=elem, drift=drift)
+
+
 def main_generate(torch, dev, seed: int, errs: dict, keep: dict) -> dict:
     """The generation side at the full width of ARCH in bf16: a
     ContinuousBatcher run, decode held to a full forward, and RAG answers
@@ -2033,12 +2306,7 @@ def main_generate(torch, dev, seed: int, errs: dict, keep: dict) -> dict:
     from repro_torch.models import build_model, count_params, init_params
     from repro_torch.serving import (ContinuousBatcher, Document,
                                      DocumentStore, RAGPipeline, Request)
-    mods = {name: importlib.import_module(f"repro_torch.kernels.{mod}")
-            for name, mod in (("filtered_topk", "filtered_topk"),
-                              ("pairwise_dist", "distance"),
-                              ("quant_topk", "quant_topk"),
-                              ("graph_step", "graph_topk"),
-                              ("flash_decode", "flash_decode"))}
+    mods = _kernel_mods(generation=True)
     fdm = mods["flash_decode"]
     cfg = get_config(ARCH)
     model = build_model(cfg)
@@ -2058,7 +2326,7 @@ def main_generate(torch, dev, seed: int, errs: dict, keep: dict) -> dict:
     for mod in mods.values():
         mod.reset_launch_count()
 
-    # -- 7a: the batcher ----------------------------------------------------
+    # -- the batcher ------------------------------------------------------------
     batcher = ContinuousBatcher(model, params, n_slots=SLOTS,
                                 max_len=MAX_LEN, eos_id=-1)
     kv_bytes = sum(c.numel() * c.element_size()
@@ -2079,12 +2347,12 @@ def main_generate(torch, dev, seed: int, errs: dict, keep: dict) -> dict:
         prefill_ms.append((time.perf_counter() - t) * 1e3)
         return out
 
-    def recorder(q, k, v, lengths):
+    def recorder(q, k, v, lengths, window=-1):
         if calls[0] == RECORD_TICK * cfg.n_layers + RECORD_LAYER:
             recorded.update(q=q.clone(), k=k.clone(), v=v.clone(),
-                            lengths=lengths.clone())
+                            lengths=lengths.clone(), window=int(window))
         calls[0] += 1
-        return real_fd(q, k, v, lengths)
+        return real_fd(q, k, v, lengths, window)
     batcher.prefill_fn = timed_prefill
     fdm.flash_decode_call = recorder
     t_run = time.perf_counter()
@@ -2155,58 +2423,18 @@ def main_generate(torch, dev, seed: int, errs: dict, keep: dict) -> dict:
         tokens_per_s=n_tok / t_run, ticks=batcher.steps)
     del batcher
 
-    # -- 7b: decode == forward ----------------------------------------------
-    worst, worst_gap_tok, checked = 0.0, 0, 0
-    cache = model.init_cache(N_FORWARD, MAX_LEN, device=dev)
-    steps = [[] for _ in range(N_FORWARD)]
-    cur = torch.zeros((N_FORWARD, 1), dtype=torch.int32, device=dev)
-    for i in range(N_FORWARD):
-        view = {name: c[:, i:i + 1] for name, c in cache.items()}
-        lg, _ = model.prefill(params, torch.as_tensor(
-            prompts[i][None], device=dev), view)
-        steps[i].append(lg[0, -1].float())
-        cur[i, 0] = torch.argmax(lg[0, -1].float())
-    pos = torch.tensor(lens[:N_FORWARD], dtype=torch.long, device=dev)
-    gen_toks = [cur.clone()]
-    for _ in range(MAX_NEW - 1):
-        lg, cache = model.decode_step(params, cur, cache, pos)
-        for i in range(N_FORWARD):
-            steps[i].append(lg[i, 0].float())
-        cur = torch.argmax(lg[:, 0].float(), dim=-1)[:, None].to(torch.int32)
-        gen_toks.append(cur.clone())
-        pos += 1
-    gen_toks = torch.cat(gen_toks, dim=1)              # [N_FORWARD, MAX_NEW]
-    del cache
-    for i in range(N_FORWARD):
-        full = torch.cat([torch.as_tensor(prompts[i], device=dev).long(),
-                          gen_toks[i, :-1].long()])[None]
-        fwd, _ = model.logits(params, full)
-        n = int(lens[i])
-        fwd = fwd[0, n - 1:n - 1 + MAX_NEW].float()    # [MAX_NEW, vocab]
-        dec = torch.stack(steps[i])
-        rms = fwd.pow(2).mean(-1, keepdim=True).sqrt()
-        rel = ((dec - fwd).abs() / rms).max(-1).values
-        worst = max(worst, float(rel.max()))
-        check(bool((rel <= LOGIT_TOL).all()),
-              f"request {i}: decode logits differ from the forward's by "
-              f"{float(rel.max()):.4f} x rms > {LOGIT_TOL}")
-        top2 = torch.topk(fwd, 2, dim=-1).values
-        gap = (top2[:, 0] - top2[:, 1]) / rms[:, 0]
-        sure = gap > LOGIT_TOL
-        agree = gen_toks[i].long() == fwd.argmax(-1)
-        check(bool(agree[sure].all()),
-              f"request {i}: a greedy token differs from the forward's "
-              f"argmax where the top-2 gap exceeds the tolerance")
-        checked += int(sure.sum())
-        worst_gap_tok += int((~agree).sum())
+    # -- decode == forward ---------------------------------------------------
+    worst, checked, ties = hold_to_forward(
+        torch, model, params, prompts[:N_FORWARD], MAX_NEW, MAX_LEN,
+        f"{ARCH}")
     log(f"decode vs forward ({N_FORWARD} requests x {MAX_NEW} steps, "
         f"ragged positions): max |diff| / rms(row) {worst:.4f} (tolerance "
         f"{LOGIT_TOL}); greedy tokens equal the forward's argmax at all "
-        f"{checked} steps whose top-2 gap exceeds it ({worst_gap_tok} "
-        f"near-tie steps differ)")
+        f"{checked} steps whose top-2 gap exceeds it ({ties} near-tie steps "
+        f"differ)")
     keep["generation"]["decode_vs_forward_rel"] = worst
 
-    # -- 7c: RAG ----------------------------------------------------------------
+    # -- RAG ----------------------------------------------------------------------
     m = 3
     xt, st = make_dataset_device(N_RAG, D, m, seed=seed + 72, device=dev)
     x_np, s_np = xt.cpu().numpy(), st.cpu().numpy().astype(np.float64)
@@ -2258,63 +2486,308 @@ def main_generate(torch, dev, seed: int, errs: dict, keep: dict) -> dict:
 
 
 def measure_decode(torch, keep: dict, errs: dict) -> dict:
-    """B5 on the inputs one layer of a recorded batcher tick handed it:
-    held against its twin, then timed beside the twin, its bound (the
-    filled prefix's K / V bytes plus q and o over HBM bandwidth) and
-    ``scaled_dot_product_attention`` with a boolean length mask."""
+    """B5 on the inputs layer RECORD_LAYER of batcher tick RECORD_TICK
+    handed it (:func:`measure_b5`), with the slots' lengths logged."""
+    rec = keep["decode"]
+    mm = measure_b5(torch, rec, f"layer {RECORD_LAYER} of batcher tick "
+                    f"{RECORD_TICK}", errs)
+    log(f"B5 on layer {RECORD_LAYER} of tick {RECORD_TICK}: lengths per "
+        f"slot {rec['lengths'].view(SLOTS, -1)[:, 0].tolist()}")
+    return mm
+
+
+def measure_b5(torch, rec: dict, where: str, errs: dict) -> dict:
+    """B5 on one recorded call (``q, k, v, lengths``, its ``window`` and
+    batch ``b``): held against its twin, then timed beside the twin, its
+    bound (the K / V bytes of the keys each row reads, plus q and o, over
+    HBM bandwidth) and ``scaled_dot_product_attention`` with the same
+    boolean mask (the row's window, or its filled prefix)."""
     from repro_torch.kernels.flash_decode import (flash_decode_call,
                                                   flash_decode_plain)
-    rec = keep["decode"]
     q, k, v, lengths = rec["q"], rec["k"], rec["v"], rec["lengths"]
+    window, b = rec.get("window", -1), rec.get("b", SLOTS)
     bkv, g, hd = q.shape
     smax = k.shape[1]
-    e = compare_decode(torch, q, k, v, lengths, "B5 on the recorded tick")
+    e = compare_decode(torch, q, k, v, lengths, f"B5 at {where}", window)
     errs["flash_decode"] = max(errs["flash_decode"], e)
-    filled = int((lengths.long() + 1).sum())
-    log(f"B5 vs twin on layer {RECORD_LAYER} of tick {RECORD_TICK}: "
-        f"[{bkv}, {g}, {smax}, {hd}] {q.dtype}, lengths per slot "
-        f"{lengths.view(SLOTS, -1)[:, 0].tolist()}, {filled} filled "
-        f"positions of {bkv * smax}: agree, max |err| {e:.3g}")
+    hi = lengths.long()
+    lo = (hi - window).clamp(min=0) if window >= 0 else torch.zeros_like(hi)
+    keys = int((hi - lo + 1).sum())
+    log(f"B5 vs twin at {where}: [{bkv}, {g}, {smax}, {hd}] {q.dtype}, "
+        f"window {window}, {keys} keys read of {bkv * smax}: agree, max "
+        f"|err| {e:.3g}")
     # CUDA events around back-to-back calls, the timer of every kernel
     # here; and device time alone (the kernel is about as short as its
     # wrapper's host time, which events around back-to-back calls include)
-    kern = lambda: flash_decode_call(q, k, v, lengths)  # noqa: E731
+    kern = lambda: flash_decode_call(q, k, v, lengths, window)  # noqa: E731
     ms = cuda_ms(torch, kern, iters=50, warmup=5)
     ms_device = device_ms(torch, kern, iters=50, warmup=5)
-    plain = cuda_ms(torch, lambda: flash_decode_plain(q, k, v, lengths),
-                    iters=10)
+    plain = cuda_ms(torch, lambda: flash_decode_plain(q, k, v, lengths,
+                                                      window), iters=10)
     import torch.nn.functional as F
-    b = SLOTS
     n_kv = bkv // b
     ql = q.view(b, n_kv * g, 1, hd)
     kl, vl = k.view(b, n_kv, smax, hd), v.view(b, n_kv, smax, hd)
-    mask = (torch.arange(smax, device=q.device)[None, :]
-            <= lengths.view(b, n_kv)[:, :1].long())[:, None, None, :]
+    col = torch.arange(smax, device=q.device)[None, :]
+    mask = ((col <= hi.view(b, n_kv)[:, :1])
+            & (col >= lo.view(b, n_kv)[:, :1]))[:, None, None, :]
 
     def library():
         return F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
                                               enable_gqa=True)
-    lib_out = library()
-    lib_err = float((lib_out.reshape(bkv, g, hd).float()
-                     - flash_decode_plain(q, k, v, lengths).float()
+    lib_err = float((library().reshape(bkv, g, hd).float()
+                     - flash_decode_plain(q, k, v, lengths, window).float()
                      ).abs().max())
     lib = cuda_ms(torch, library, iters=50, warmup=5)
     lib_device = device_ms(torch, library, iters=50, warmup=5)
     es = q.element_size()
-    nbytes = 2.0 * filled * hd * es + 2.0 * q.numel() * es + 4.0 * bkv
-    flops = 4.0 * filled * g * hd
+    nbytes = 2.0 * keys * hd * es + 2.0 * q.numel() * es + 4.0 * bkv
+    flops = 4.0 * keys * g * hd
     bound = max(nbytes / PEAK_BYTES, flops / PEAK_FP32_FLOPS) * 1e3
-    log(f"B5 library yardstick: scaled_dot_product_attention (GQA, bool "
-        f"mask) differs from the twin by {lib_err:.3g}")
+    log(f"B5 library yardstick at {where}: scaled_dot_product_attention "
+        f"(GQA, bool mask) differs from the twin by {lib_err:.3g}")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
                 bound_by="bytes" if nbytes / PEAK_BYTES
                 >= flops / PEAK_FP32_FLOPS else "operations",
-                filled=filled, device_ms=ms_device,
-                library_device_ms=lib_device,
-                shape=f"layer {RECORD_LAYER} of batcher tick {RECORD_TICK}:"
-                      f" q[{bkv},{g},{hd}] k/v[{bkv},{smax},{hd}] "
-                      f"{str(q.dtype).replace('torch.', '')}, {filled} "
-                      f"filled positions")
+                filled=keys, keys=keys, window=window, device_ms=ms_device,
+                library_device_ms=lib_device, max_abs_err=e,
+                shape=f"{where}: q[{bkv},{g},{hd}] k/v[{bkv},{smax},{hd}] "
+                      f"{str(q.dtype).replace('torch.', '')}, window "
+                      f"{window}, {keys} keys read")
+
+
+def main_family(torch, dev, arch: str, spec: dict, seed: int,
+                keep: dict) -> dict:
+    """One generation family at its published width in bf16 (phase 7b):
+    the run of ``spec`` (a ContinuousBatcher or serve_step.generate),
+    timed per prefill and per decode step (one step traced), with the B5
+    launches counted (windowed apart), MoE routes counted and the B5
+    inputs of FAMILY_RECORDS kept in ``keep``; then decode held to a
+    forward.  Returns the phase's launches of every kernel and its
+    numbers."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, count_params, init_params
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serving import ContinuousBatcher, Request, generate
+    mods = _kernel_mods(generation=True)
+    fdm = mods["flash_decode"]
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = init_params(model.param_specs(), seed=seed, device=dev)
+    torch.cuda.synchronize()
+    n_par = count_params(model.param_specs())
+    log(f"{arch} ({cfg.family}): {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}; {n_par} parameters "
+        f"({n_par * 2 / 1e9:.2f} GB bf16) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # B5 launches a decode step makes, windowed among them
+    per_step = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+                "audio": 2 * cfg.n_layers, "encdec": 2 * cfg.n_layers
+                }.get(cfg.family, cfg.n_layers)
+    windowed = (int((np.asarray(model.windows) >= 0).sum())
+                if hasattr(model, "windows") else 0)
+    rng = np.random.default_rng(seed + 80)
+    frames = None
+    if cfg.n_enc_layers:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 81)
+        frames = torch.randn((spec["batch"], cfg.n_frames, cfg.d_model),
+                             generator=gen, device=dev)
+
+    routes = [0, 0]                     # MoE assignments, kept
+    recorded = {}
+    want = {j: name for a, j, name in FAMILY_RECORDS if a == arch}
+    calls = [0]
+    prefill_ms, step_ms, busy = [], [], {}
+    real = dict(route=moe_mod.route, fd=fdm.flash_decode_call,
+                prefill=model.prefill, decode=model.decode_step)
+
+    def route_spy(xt, router, c):
+        out = real["route"](xt, router, c)
+        routes[0] += out[0].numel()
+        routes[1] += out[3].numel()
+        return out
+
+    def fd_spy(q, k, v, lengths, window=-1):
+        step, j = divmod(calls[0], per_step)
+        if step == FAMILY_RECORD_STEP and j in want:
+            recorded[want[j]] = dict(q=q.clone(), k=k.clone(), v=v.clone(),
+                                     lengths=lengths.clone(),
+                                     window=int(window),
+                                     b=q.shape[0] // cfg.n_kv)
+        calls[0] += 1
+        return real["fd"](q, k, v, lengths, window)
+
+    def timed_prefill(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real["prefill"](*a, **kw)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def timed_decode(*a, **kw):
+        torch.cuda.synchronize()
+        if len(step_ms) == FAMILY_PROFILE_STEP and not busy:
+            res = {}
+            busy.update(profile_tick(torch, lambda: res.setdefault(
+                "out", real["decode"](*a, **kw))))
+            return res["out"]
+        t = time.perf_counter()
+        out = real["decode"](*a, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    for mod in mods.values():
+        mod.reset_launch_count()
+    moe_mod.route, fdm.flash_decode_call = route_spy, fd_spy
+    model.prefill, model.decode_step = timed_prefill, timed_decode
+    try:
+        t_run = time.perf_counter()
+        if spec["run"] == "batcher":
+            lens = rng.integers(spec["lo"], spec["hi"] + 1, spec["requests"])
+            prompts = [rng.integers(2, cfg.vocab, size=int(n)).astype(
+                np.int32) for n in lens]
+            batcher = ContinuousBatcher(model, params,
+                                        n_slots=spec["slots"],
+                                        max_len=spec["max_len"], eos_id=-1)
+            for i, p in enumerate(prompts):
+                batcher.submit(Request(req_id=i, prompt=p,
+                                       max_new=spec["new"]))
+            done = batcher.run_until_drained()
+            torch.cuda.synchronize()
+            t_run = time.perf_counter() - t_run
+            check(len(done) == spec["requests"],
+                  f"{arch}: the batcher finished {len(done)} requests")
+            outs = [np.asarray(r.output) for r in done]
+            n_req, n_steps = spec["requests"], batcher.steps
+            del batcher
+        else:
+            lens = np.full(spec["batch"], spec["prompt"])
+            prompts = rng.integers(2, cfg.vocab, size=(
+                spec["batch"], spec["prompt"])).astype(np.int32)
+            out = generate(model, params, prompts, max_new=spec["new"],
+                           extra=frames)
+            torch.cuda.synchronize()
+            t_run = time.perf_counter() - t_run
+            outs = list(out.cpu().numpy())
+            n_req, n_steps = spec["batch"], spec["new"] - 1
+    finally:
+        moe_mod.route, fdm.flash_decode_call = real["route"], real["fd"]
+        model.prefill, model.decode_step = real["prefill"], real["decode"]
+    launches = {name: mod.launch_count() for name, mod in mods.items()}
+    n_windowed = fdm.windowed_launch_count()
+    for r, o in enumerate(outs):
+        check(len(o) == spec["new"] and bool(((o >= 0) & (o < cfg.vocab))
+                                              .all()),
+              f"{arch} request {r}: {len(o)} tokens")
+    check(launches["flash_decode"] == per_step * n_steps
+          and n_windowed == windowed * n_steps,
+          f"{arch}: B5 launched {launches['flash_decode']} times "
+          f"({n_windowed} windowed) in {n_steps} decode steps of "
+          f"{per_step} ({windowed} windowed)")
+    check(per_step == 0 or launches["flash_decode"] >= 1,
+          f"{arch}: B5 was not launched")
+    check(all(name in recorded for name in want.values()),
+          f"{arch}: B5 calls {sorted(want.values())} were not recorded")
+    keep.update(recorded)
+    step = np.asarray(step_ms)
+    n_tok = n_req * spec["new"]
+    res = dict(prefill_ms_per_request=float(sum(prefill_ms) / n_req),
+               prompt_tokens=int(lens.sum()), decode_steps=n_steps,
+               step_ms_mean=float(step.mean()),
+               step_ms_p50=float(np.median(step)),
+               tokens_per_s=n_tok / t_run, b5_launches=launches[
+                   "flash_decode"], b5_windowed=n_windowed)
+    if busy.get("device_ms", 0) > 0:
+        res["device_ms_step"] = busy["device_ms"]
+        res["idle_share"] = 1.0 - busy["device_ms"] / float(np.median(step))
+    if cfg.family == "moe":
+        res["moe_dropped_share"] = 1.0 - routes[1] / max(routes[0], 1)
+    log(f"{arch}: {n_req} requests, prompts {int(lens.min())}.."
+        f"{int(lens.max())} tokens, {spec['new']} new each, {n_steps} "
+        f"decode steps in {t_run:.2f} s = {res['tokens_per_s']:.1f} tokens/s"
+        f" end to end; prefill {res['prefill_ms_per_request']:.2f} ms per "
+        f"request ({len(prefill_ms)} prefill calls); decode step mean "
+        f"{res['step_ms_mean']:.3f} ms, p50 {res['step_ms_p50']:.3f} ms; "
+        f"B5 launches {launches['flash_decode']} ({n_windowed} windowed) = "
+        f"{per_step} x {n_steps} steps"
+        + (f" ({cfg.n_layers} self + {cfg.n_layers} cross a step)"
+           if cfg.n_enc_layers else ""))
+    if "idle_share" in res:
+        log(f"{arch}: decode step {FAMILY_PROFILE_STEP} under torch."
+            f"profiler: device busy {busy['device_ms']:.3f} ms in "
+            f"{busy['kernels']} kernels, {res['idle_share']:.3f} of the "
+            f"median step idle; top kernels (ms): {busy['top']}")
+    else:
+        log(f"{arch}: no device time recorded; idle share not measured")
+    if "moe_dropped_share" in res:
+        log(f"{arch}: capacity dropped {res['moe_dropped_share']:.4f} of "
+            f"{routes[0]} token-expert assignments")
+
+    # decode held to a forward.  A MoE decode step (<= 8 tokens) drops no
+    # assignment, while a forward over a whole prompt may (its capacity
+    # is 1.25x the mean load): the check runs the model with a capacity
+    # that keeps every assignment, in its prefill, decode and forward, and
+    # forces the prefill's and decode's experts on the forward (RouteTape)
+    tape = None
+    if cfg.family == "moe":
+        model = build_model(dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k))
+        tape = RouteTape(torch, moe_mod, cfg.n_layers, N_FORWARD)
+    if cfg.family in ("ssm", "hybrid"):
+        toks = torch.as_tensor(prompts[:2, :REPLAY], device=dev).long()
+        held = hold_layers(torch, model, params, toks, arch)
+        worst, d = held["worst"], held["drift"]
+        res["free_drift_last_block"] = d[-1]
+        log(f"{arch}: decode stack run free vs the forward, relative "
+            f"divergence of the hidden states after blocks 1, 2, 4, 8, "
+            f"...: {[round(d[i - 1], 5) for i in (1, 2, 4, 8, 16, 32, 64) if i <= len(d)]}"
+            f", after the last ({len(d)}) {d[-1]:.4f}")
+        log(f"{arch}: decode vs forward, {len(d)} blocks each fed the "
+            f"forward's input (2 rows x {REPLAY} steps from position 0): "
+            f"max |diff| / |row| {worst:.4f} (tolerance {LOGIT_TOL}); "
+            f"largest element |diff| / rms(row) {held['elem']:.4f}")
+    else:
+        pr = list(prompts[:N_FORWARD])
+        with tape or contextlib.nullcontext():
+            worst, checked, ties = hold_to_forward(
+                torch, model, params, pr, spec["new"],
+                max(len(p) for p in pr) + spec["new"], arch,
+                None if frames is None else frames[:N_FORWARD],
+                tape and tape.on_forward)
+        how = (f"{N_FORWARD} requests x {spec['new']} steps after their "
+               f"prefill")
+        if tape:
+            how += (f", the forwards routed as the prefill and decode were "
+                    f"({tape.flips} of {tape.total} assignments are "
+                    f"near-ties the forward picks otherwise)")
+            res["moe_route_flips"] = tape.flips / max(tape.total, 1)
+        log(f"{arch}: decode vs forward ({how}): max |diff| / rms(row) "
+            f"{worst:.4f} (tolerance {LOGIT_TOL}); argmax equal at all "
+            f"{checked} steps whose top-2 gap exceeds it ({ties} near-tie "
+            f"steps differ)")
+    res["decode_vs_forward_rel"] = worst
+    return dict(launches=launches, numbers=res)
+
+
+def main_families(torch, dev, seed: int, keep: dict) -> dict:
+    """Phase 7b: every family of FAMILIES in turn, each model freed before
+    the next.  Returns the phase's launches of every kernel and each
+    family's numbers."""
+    launches, numbers = {}, {}
+    for arch, spec in FAMILIES:
+        r = main_family(torch, dev, arch, spec, seed, keep)
+        for name, c in r["launches"].items():
+            launches[name] = launches.get(name, 0) + c
+        numbers[arch] = r["numbers"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"generation families launches: {launches}")
+    return dict(launches=launches, numbers=numbers)
 
 
 def main() -> int:
@@ -2465,6 +2938,28 @@ def main() -> int:
         f"end to end, decode vs forward {g['decode_vs_forward_rel']:.4f} x "
         f"rms")
 
+    # ---- the generation families, each model freed before the next -----
+    keep.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase("7b generation families", torch):
+        # each family resets every count just before it and reads it after
+        fams = main_families(torch, dev, SEED, keep)
+    for name, c in fams["launches"].items():
+        launches[name] += c
+    with Phase("7b measure (B5 windowed, global and hd 80)", torch):
+        b5_fam = {name: measure_b5(torch, keep[name], f"{arch} decode step "
+                                   f"{FAMILY_RECORD_STEP}, B5 call {j + 1}",
+                                   errs)
+                  for arch, j, name in FAMILY_RECORDS}
+        for name, mm in b5_fam.items():
+            log(f"flash_decode {name} at {mm['shape']}: kernel "
+                f"{mm['ms']:.4f} ms, library {mm['library_ms']:.4f} ms, twin "
+                f"{mm['plain_ms']:.4f} ms; device time kernel "
+                f"{mm['device_ms']:.4f} ms, library "
+                f"{mm['library_device_ms']:.4f} ms; bound "
+                f"{mm['bound_ms']:.4f} ms ({mm['bound_by']})")
+
     # ---- the serving tier, after the generation side's tensors go ------
     keep.clear()
     gc.collect()
@@ -2506,6 +3001,18 @@ def main() -> int:
         if name == "flash_decode":
             entry["device_ms"] = mm["device_ms"]
             entry["library_device_ms"] = mm["library_device_ms"]
+            # phase 7b: gemma3's windowed and global layers, zamba2's hd 80
+            fam_keys = ("ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "device_ms", "library_device_ms",
+                        "max_abs_err", "keys", "shape")
+            for key in ("windowed", "hd80"):
+                entry[key] = {k: b5_fam[key][k] for k in fam_keys}
+            entry["windowed"]["global"] = {k: b5_fam["global"][k]
+                                           for k in fam_keys}
+            nums = fams["numbers"]
+            entry["windowed"]["launches"] = nums["gemma3-1b"]["b5_windowed"]
+            entry["hd80"]["launches"] = nums["zamba2-2.7b"]["b5_launches"]
+            entry["families"] = nums
         if name == "filtered_topk":
             for key in ("dense_bound_ms", "pass_share", "gather_library_ms",
                         "scan_tile_share"):

@@ -5,15 +5,18 @@
 // flash_decode_kernel_call (pallas_call at :76).  For each row r (one
 // (batch, kv-head) pair) and each of its g query heads:
 //
-//   o = softmax(q . K^T / sqrt(hd), masked to columns <= lengths[r]) . V
+//   o = softmax(q . K^T / sqrt(hd), masked to columns lo_r .. hi_r) . V
 //
+// with hi_r = lengths[r] and lo_r = max(0, hi_r - window) for a layer
+// window >= 0 (the reference decode's sliding window,
+// src/repro/models/layers.py::attention_decode), else 0.
 // q [bkv, g, hd], k / v [bkv, smax, hd], lengths [bkv] int32 (inclusive),
 // o [bkv, g, hd] in q's dtype (fp32 or bf16); products, softmax and sums in
 // fp32 (held against kernels/ref.py::flash_decode_ref).  The TPU kernel's
 // constraints (smax % ts == 0, hd % 128 == 0, g a multiple of 8) come from
 // its tiling and are not inherited: any smax, g in 1..16, hd in
-// {64, 128, 256}.  lengths must lie in [0, smax); the kernel clamps them
-// into that range so that it never reads outside a row.
+// {64, 80, 128, 256}.  lengths must lie in [0, smax); the kernel clamps
+// them into that range so that it never reads outside a row.
 //
 // What bounds it on an H100: bytes.  Each cached key is read once (K and
 // V, 2 * hd * sizeof(T) bytes) and used for 4 * g * hd operations, at
@@ -21,8 +24,10 @@
 // so the filled prefix's K / V bytes over HBM bandwidth are the bound.
 //
 // Design:
-// - Work follows the filled prefix, shared out evenly.  Row r holds
-//   ceil((lengths[r] + 1) / TS) tiles of TS keys; a fixed grid of blocks
+// - Work follows the keys a row reads, shared out evenly.  Row r holds
+//   the tiles of TS keys from the one holding lo_r to the one holding
+//   hi_r (a windowed row costs the tiles of its window, and its first
+//   tile masks the keys before lo_r); a fixed grid of blocks
 //   (as many as the card holds at once, from the wrapper:
 //   kernels/flash_decode.py::launch_config) splits the concatenation of
 //   all rows' tiles into equal contiguous ranges, so every block streams
@@ -32,7 +37,8 @@
 // - Copies in flight behind the compute.  K / V tiles (and the query row
 //   of the tile's row) go through a STAGES-deep ring in shared memory by
 //   16-byte cp.async copies, continuing across row boundaries inside a
-//   block's range (keys past the prefix are zero-filled, never read);
+//   block's range (keys past the prefix or before the window are
+//   zero-filled, never read);
 //   each tile waits on one barrier, and the next STAGES - 1 tiles are in
 //   flight while it is scored.  K rows are padded by 16 bytes so that a
 //   lane reading a whole key row meets no bank conflict.
@@ -48,7 +54,9 @@
 //   slice's probabilities times V at that slice's scale: 2 fp32
 //   accumulators per head, the group rounded up to GC = 1, 2, 4, 8 or 16
 //   at compile time (internvl2-2b: one head a thread), nothing to add up
-//   across threads.
+//   across threads.  Where HD / 2 does not divide the block (hd 80: 40
+//   column pairs, 3 head slots) the last NT % (HD / 2) threads stay idle
+//   in PV; the cache is read at its own width, never padded.
 // - The combine is folded in.  A row whose tiles fall in one block's
 //   range is written directly.  Otherwise each block leaves its segment's
 //   (max, sum, acc) in scratch (two slots a block: only a block's first
@@ -151,7 +159,8 @@ struct Geo {
   static constexpr int CPR = HD / 2;                   // column pairs
   static constexpr int HS = NT / CPR;                  // head slots (PV)
   static constexpr int HPT = (GC + HS - 1) / HS;       // heads a thread
-  static_assert(HS >= 1 && HS * CPR == NT, "PV thread roles");
+  static constexpr bool ALL_PV = HS * CPR == NT;       // no idle PV thread
+  static_assert(HS >= 1 && HS * CPR <= NT, "PV thread roles");
   static_assert(32 % KW == 0 && KW % 4 == 0, "score lanes, float4 slices");
   static_assert(PS % 16 == 0 && QF % 16 == 0, "float4 shared reads");
   static int smem(int bkv) { return PRE + ((bkv + 1) * 4 + 15) / 16 * 16; }
@@ -163,7 +172,7 @@ __global__ void __launch_bounds__(NT, 2) flash_decode(
     const T* __restrict__ v, const int* __restrict__ lengths,
     T* __restrict__ out, float* __restrict__ part_acc,
     float* __restrict__ part_ml, int* __restrict__ counters, int bkv,
-    int g, int smax) {
+    int g, int smax, int window) {
   using G = Geo<T, HD, GC>;
   constexpr int TS = G::TS, KW = G::KW, NPL = G::NPL, EPV = G::EPV;
   constexpr int VPR = G::VPR, KRS = G::KRS, QLD = G::QLD, CPR = G::CPR;
@@ -177,15 +186,23 @@ __global__ void __launch_bounds__(NT, 2) flash_decode(
   int* pre = reinterpret_cast<int*>(smem + G::PRE);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // row r reads keys [first_key(nv), nv) with nv = nvalid(r)
   auto nvalid = [&](int r) {
     return min(max(__ldg(lengths + r), 0), smax - 1) + 1;
+  };
+  auto first_key = [&](int nv) {
+    return window < 0 ? 0 : max(nv - 1 - window, 0);
   };
   // the rows' tile prefix sums (warp 0)
   if (warp == 0) {
     int carry = 0;
     for (int r0 = 0; r0 < bkv; r0 += 32) {
       const int r = r0 + lane;
-      int x = r < bkv ? (nvalid(r) + TS - 1) / TS : 0;
+      int x = 0;
+      if (r < bkv) {
+        const int nv = nvalid(r);
+        x = (nv - 1) / TS - first_key(nv) / TS + 1;
+      }
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
         const int y = __shfl_up_sync(FULL, x, o);
@@ -233,7 +250,9 @@ __global__ void __launch_bounds__(NT, 2) flash_decode(
   int ir = row_of(t0), ii = t0 - pre[ir], issued = 0;
   auto issue_next = [&]() {
     if (t0 + issued < t1) {
-      const int key0 = ii * TS, kv = min(TS, nvalid(ir) - key0);
+      const int nv = nvalid(ir), lo = first_key(nv);
+      const int key0 = (lo / TS + ii) * TS, kv = min(TS, nv - key0);
+      const int klo = lo - key0;            // > 0 in a window's first tile
       const int s = issued % STAGES;
       T* ks = kslot(s);
       T* vs = vslot(s);
@@ -241,7 +260,7 @@ __global__ void __launch_bounds__(NT, 2) flash_decode(
       const long long base = ((long long)ir * smax + key0) * HD;
       for (int idx = tid; idx < TS * VPR; idx += NT) {
         const int t = idx / VPR, e = (idx % VPR) * EPV;
-        const bool ok = t < kv;
+        const bool ok = t >= klo && t < kv;
         const long long src = ok ? base + (long long)t * HD + e : 0;
         cp16(ks + t * KRS + e, k + src, ok);
         cp16(vs + t * HD + e, v + src, ok);
@@ -259,8 +278,10 @@ __global__ void __launch_bounds__(NT, 2) flash_decode(
 
   const float scale = 1.4426950408889634f / sqrtf((float)HD);  // log2(e)/sqrt
   // PV roles: columns 2 cp, 2 cp + 1 of heads hs, hs + HS, ...; each keeps
-  // its heads' running (max, sum) of the segment
-  const int cp = tid % CPR, hs = tid / CPR;
+  // its heads' running (max, sum) of the segment.  A thread past the
+  // roles (tid >= HS * CPR) takes head slot GC: every head it would hold
+  // is >= GC, so it skips PV and writes nothing.
+  const int cp = tid % CPR, hs = tid < HS * CPR ? tid / CPR : GC;
   float mrun[HPT], lrun[HPT], acc[HPT][2];
 #pragma unroll
   for (int j = 0; j < HPT; ++j) {
@@ -282,7 +303,9 @@ __global__ void __launch_bounds__(NT, 2) flash_decode(
     const bool last = ci == nt_row - 1 || it == t1 - t0 - 1;
     const T* ks = kslot(s);
     const T* vs = vslot(s);
-    const int kv = min(TS, nvalid(cr) - ci * TS);
+    const int nv = nvalid(cr), lo = first_key(nv);
+    const int key0 = (lo / TS + ci) * TS;
+    const int kv = min(TS, nv - key0), klo = lo - key0;
     if (first) {   // the segment's query row, scaled into the log2 domain
       const T* qs = qslot(s);
       for (int o = tid; o < g * HD; o += NT)
@@ -318,7 +341,7 @@ __global__ void __launch_bounds__(NT, 2) flash_decode(
 #pragma unroll
       for (int i = 0; i < NPL; ++i) {
         const int h = (lane + 32 * i) / KW;
-        const float sc = h < g && tk < kv
+        const float sc = h < g && tk >= klo && tk < kv
                              ? (a[i][0] + a[i][1]) + (a[i][2] + a[i][3])
                              : -INFINITY;
         float mx = sc;
@@ -374,7 +397,7 @@ __global__ void __launch_bounds__(NT, 2) flash_decode(
 #pragma unroll
         for (int j = 0; j < HPT; ++j) {
           const int h = hs + j * HS;
-          if (GC >= HS || h < GC) {
+          if ((G::ALL_PV && GC >= HS) || h < GC) {
             const float4 p = *reinterpret_cast<const float4*>(ps + h * TS + t);
             const float pp[4] = {p.x, p.y, p.z, p.w};
 #pragma unroll
@@ -469,7 +492,7 @@ template <typename T, int HD, int GC>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* lengths, void* out, float* part_acc,
                    float* part_ml, int* counters, int bkv, int g, int smax,
-                   int nblocks, int smem, cudaStream_t st) {
+                   int window, int nblocks, int smem, cudaStream_t st) {
   using G = Geo<T, HD, GC>;
   if (smem != G::smem(bkv)) return cudaErrorInvalidValue;
   // the shared-memory opt-in per device, renewed only when a launch asks
@@ -497,7 +520,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   flash_decode<T, HD, GC><<<nblocks, NT, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(out), part_acc,
-      part_ml, counters, bkv, g, smax);
+      part_ml, counters, bkv, g, smax, window);
   return cudaGetLastError();
 }
 
@@ -505,10 +528,10 @@ template <typename T, int HD>
 cudaError_t by_group(int gc, const void* q, const void* k, const void* v,
                      const int* lengths, void* out, float* part_acc,
                      float* part_ml, int* counters, int bkv, int g, int smax,
-                     int nblocks, int smem, cudaStream_t st) {
+                     int window, int nblocks, int smem, cudaStream_t st) {
 #define REPRO_FD(GC)                                                        \
   launch<T, HD, GC>(q, k, v, lengths, out, part_acc, part_ml, counters, bkv, \
-                    g, smax, nblocks, smem, st)
+                    g, smax, window, nblocks, smem, st)
   switch (gc) {
     case 1: return REPRO_FD(1);
     case 2: return REPRO_FD(2);
@@ -524,13 +547,14 @@ template <typename T>
 cudaError_t by_width(int hd, int gc, const void* q, const void* k,
                      const void* v, const int* lengths, void* out,
                      float* part_acc, float* part_ml, int* counters, int bkv,
-                     int g, int smax, int nblocks, int smem,
+                     int g, int smax, int window, int nblocks, int smem,
                      cudaStream_t st) {
 #define REPRO_FD(HD)                                                       \
   by_group<T, HD>(gc, q, k, v, lengths, out, part_acc, part_ml, counters, \
-                  bkv, g, smax, nblocks, smem, st)
+                  bkv, g, smax, window, nblocks, smem, st)
   switch (hd) {
     case 64: return REPRO_FD(64);
+    case 80: return REPRO_FD(80);
     case 128: return REPRO_FD(128);
     case 256: return REPRO_FD(256);
     default: return cudaErrorInvalidValue;
@@ -544,7 +568,9 @@ extern "C" {
 
 // q [bkv, g, hd], k / v [bkv, smax, hd], all fp32 (dtype 0) or all bf16
 // (dtype 1), contiguous and 16-byte aligned; lengths [bkv] int32 in
-// [0, smax) -> out [bkv, g, hd] in the same dtype.  The launch
+// [0, smax); window: -1 (global) or the keys a row reads before its last
+// (columns max(0, lengths[r] - window) .. lengths[r]) -> out [bkv, g, hd]
+// in the same dtype.  The launch
 // configuration comes from the wrapper (kernels/flash_decode.py::
 // launch_config): the group rounded up (gc in 1, 2, 4, 8, 16, >= g), the
 // blocks (nblocks) and the dynamic shared memory, which must equal this
@@ -555,9 +581,9 @@ extern "C" {
 int repro_flash_decode(const void* q, const void* k, const void* v,
                        const int* lengths, void* out, float* part_acc,
                        float* part_ml, int* counters, int bkv, int g,
-                       int smax, int hd, int nblocks, int dtype,
+                       int smax, int hd, int window, int nblocks, int dtype,
                        int gc, int smem, void* stream) {
-  if (g < 1 || g > gc || bkv < 0 || smax < 1 || nblocks < 1 ||
+  if (g < 1 || g > gc || bkv < 0 || smax < 1 || nblocks < 1 || window < -1 ||
       (dtype != 0 && dtype != 1) || !part_acc || !part_ml || !counters)
     return (int)cudaErrorInvalidValue;
   if (bkv == 0) return (int)cudaSuccess;
@@ -565,10 +591,10 @@ int repro_flash_decode(const void* q, const void* k, const void* v,
   cudaError_t e =
       dtype == 0
           ? by_width<float>(hd, gc, q, k, v, lengths, out, part_acc, part_ml,
-                            counters, bkv, g, smax, nblocks, smem, st)
+                            counters, bkv, g, smax, window, nblocks, smem, st)
           : by_width<__nv_bfloat16>(hd, gc, q, k, v, lengths, out, part_acc,
-                                    part_ml, counters, bkv, g, smax, nblocks,
-                                    smem, st);
+                                    part_ml, counters, bkv, g, smax, window,
+                                    nblocks, smem, st);
   return (int)e;
 }
 

@@ -49,7 +49,7 @@ _SIGNATURES = {
         "repro_graph_step": ([_P] * 8 + [_I] * 13 + [_P], _I),
     },
     "flash_decode": {
-        "repro_flash_decode": ([_P] * 8 + [_I] * 8 + [_P], _I),
+        "repro_flash_decode": ([_P] * 8 + [_I] * 9 + [_P], _I),
     },
 }
 

@@ -7,10 +7,12 @@ the tensor's device alone decides; a CUDA tensor never takes the twin.
 
 ``q [bkv, g, hd]`` (one row per (batch, kv-head) pair, ``g`` the GQA
 group), ``k / v [bkv, smax, hd]`` cache slabs, ``lengths [bkv]`` int32
-inclusive filled prefix, in ``[0, smax)``  ->  ``o [bkv, g, hd]`` in q's
-dtype: ``softmax(q·Kᵀ/√hd over columns <= lengths) · V`` with fp32
-accumulation.  On the card: fp32 or bf16, ``g`` in 1..16, ``hd`` in
-{64, 128, 256}, contiguous inputs; anything else raises.
+inclusive filled prefix, in ``[0, smax)``, and ``window`` (the layer's
+scalar: -1 global, else row ``r`` reads columns ``max(0, lengths[r] -
+window) .. lengths[r]``)  ->  ``o [bkv, g, hd]`` in q's dtype:
+``softmax(q·Kᵀ/√hd over those columns) · V`` with fp32 accumulation.  On
+the card: fp32 or bf16, ``g`` in 1..16, ``hd`` in {64, 80, 128, 256},
+contiguous inputs; anything else raises.
 
 The kernel combines a row's segments itself: the last block of a row takes
 a ticket from a per-row int32 counter that it leaves at 0.  The wrapper
@@ -21,6 +23,7 @@ may replay them).
 from __future__ import annotations
 
 import functools
+import operator
 import threading
 
 import torch
@@ -29,10 +32,11 @@ from . import ref
 from ._hopper import MAX_SMEM, blocks_per_sm
 
 __all__ = ["flash_decode_call", "flash_decode_plain", "launch_config",
-           "launch_count", "reset_launch_count", "MAX_G", "HEAD_DIMS"]
+           "launch_count", "windowed_launch_count", "reset_launch_count",
+           "MAX_G", "HEAD_DIMS"]
 
 MAX_G = 16
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/flash_decode.cu's layout, mirrored (the C launcher refuses a
 # shared-memory size that differs from its own)
@@ -41,7 +45,7 @@ GROUPS = (1, 2, 4, 8, 16)   # the group sizes the kernel is compiled for
 _SCRATCH: dict = {}     # (device, stream) -> (counters, partials)
 _SMS: dict = {}
 
-_LAUNCHES = [0]
+_LAUNCHES = [0, 0]      # all launches, windowed launches
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -51,17 +55,22 @@ def launch_count() -> int:
     return _LAUNCHES[0]
 
 
+def windowed_launch_count() -> int:
+    """The launches among :func:`launch_count` with a window >= 0."""
+    return _LAUNCHES[1]
+
+
 def reset_launch_count() -> None:
     with _LAUNCH_LOCK:
-        _LAUNCHES[0] = 0
+        _LAUNCHES[0] = _LAUNCHES[1] = 0
 
 
-def flash_decode_plain(q, k, v, lengths):
+def flash_decode_plain(q, k, v, lengths, window: int = -1):
     """Plain PyTorch twin of the kernel, same shapes and semantics."""
-    return ref.flash_decode_ref(q, k, v, lengths)
+    return ref.flash_decode_ref(q, k, v, lengths, window)
 
 
-def _check(q, k, v, lengths):
+def _check(q, k, v, lengths, window):
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 or lengths.dim() != 1:
         raise ValueError("flash_decode_call takes q [bkv, g, hd], k / v "
                          "[bkv, smax, hd] and lengths [bkv]")
@@ -82,6 +91,8 @@ def _check(q, k, v, lengths):
     devs = {t.device for t in (q, k, v, lengths)}
     if len(devs) != 1:
         raise ValueError(f"inputs on different devices: {devs}")
+    if window < -1:
+        raise ValueError(f"window must be >= -1, got {window}")
 
 
 def tile_keys(hd: int, size: int) -> int:
@@ -152,12 +163,13 @@ def _sms(dev) -> int:
     return n
 
 
-def flash_decode_call(q, k, v, lengths):
+def flash_decode_call(q, k, v, lengths, window: int = -1):
     """Decode attention of one layer.  CPU tensors run
     :func:`flash_decode_plain`; CUDA tensors launch the kernel or raise."""
-    _check(q, k, v, lengths)
+    window = operator.index(window)      # a Python or numpy integer
+    _check(q, k, v, lengths, window)
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, lengths)
+        return flash_decode_plain(q, k, v, lengths, window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     bkv, g, hd = q.shape
@@ -196,11 +208,12 @@ def flash_decode_call(q, k, v, lengths):
         err = lib.repro_flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), part.data_ptr(), part.data_ptr() + 4 * n_acc,
-            cnt.data_ptr(), bkv, g, smax, hd, nb, _DTYPE_CODE[q.dtype],
-            cfg["gc"], cfg["smem"], stream)
+            cnt.data_ptr(), bkv, g, smax, hd, min(window, smax), nb,
+            _DTYPE_CODE[q.dtype], cfg["gc"], cfg["smem"], stream)
     if err != 0:
         raise RuntimeError(f"flash_decode CUDA launch failed: "
                            f"cudaError {err}")
     with _LAUNCH_LOCK:
         _LAUNCHES[0] += 1
+        _LAUNCHES[1] += window >= 0
     return out

@@ -151,14 +151,20 @@ def beam_step_ref(q, cand_x, cand_meta, kind: str, params,
     return d, ok.to(torch.int32)
 
 
-def flash_decode_ref(q, k, v, lengths):
+def flash_decode_ref(q, k, v, lengths, window: int = -1):
     """Oracle for the fused decode-attention kernel (B5), fp32 throughout.
     q [bkv, g, hd], k / v [bkv, smax, hd], lengths [bkv] (inclusive
-    prefix) -> o [bkv, g, hd] in q's dtype."""
+    prefix) -> o [bkv, g, hd] in q's dtype.  ``window >= 0`` keeps row
+    ``r`` to columns ``max(0, lengths[r] - window) .. lengths[r]``
+    (the reference decode's sliding window); -1 is global."""
     qf, kf, vf = q.float(), k.float(), v.float()
     hd = q.shape[-1]
     scores = torch.einsum("bgd,bsd->bgs", qf, kf) / math.sqrt(hd)
     col = torch.arange(k.shape[1], device=q.device)[None, None, :]
-    scores = scores.masked_fill(col > lengths.long()[:, None, None], -1e30)
+    end = lengths.long()[:, None, None]
+    out = col > end
+    if window >= 0:
+        out = out | (col < end - window)
+    scores = scores.masked_fill(out, -1e30)
     attn = torch.softmax(scores, dim=-1)
     return torch.einsum("bgs,bsd->bgd", attn, vf).to(q.dtype)

@@ -1,12 +1,12 @@
 """Serving launcher: continuous-batched generation with random weights.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
       --smoke --requests 16 --slots 4 --device cpu
 
 The flags are the reference launcher's plus ``--device`` (default: the
-first CUDA card).  The default arch is ``internvl2-2b``, not the
-reference's ``gemma3-1b``: gemma3's sliding-window layers are not ported
-yet (ROADMAP Queue A item 12b).
+first CUDA card).  The encoder-decoder ``whisper-medium`` needs frames
+at prefill, which the batcher does not carry: serve it with
+``serving.serve_step.generate(..., extra=frames)``.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from ..serving.batching import ContinuousBatcher, Request
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default="internvl2-2b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="gemma3-1b")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
@@ -53,7 +53,7 @@ def main(argv=None):
     total_tokens = sum(len(r.output) for r in done)
     print(f"served {len(done)} requests, {total_tokens} tokens in {dt:.1f}s "
           f"({total_tokens/dt:.1f} tok/s, {batcher.steps} decode ticks) on "
-          f"{dev}")
+          f"{dev} with {cfg.name}")
     for r in done[:3]:
         print(f"  req {r.req_id}: {len(r.output)} tokens -> {r.output[:8]}…")
     return done

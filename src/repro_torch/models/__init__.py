@@ -1,5 +1,6 @@
-"""Model zoo of the port: config-driven decoder LM backbones (families
-``dense`` and ``vlm``) — the counterpart of ``repro.models``."""
+"""Model zoo of the port: config-driven LM backbones of every family the
+reference builds (``dense``, ``moe``, ``vlm``, ``ssm``, ``hybrid``,
+``encdec`` / ``audio``) — the counterpart of ``repro.models``."""
 from .api import build_model
 from .common import ArchConfig, Spec, count_params, init_params
 from .convert import params_from_jax

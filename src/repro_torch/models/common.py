@@ -94,8 +94,7 @@ class ArchConfig:
         return _DTYPES[self.dtype]
 
     def n_params(self) -> int:
-        """Parameter count from the specs (for MODEL_FLOPS = 6·N·D).  Only
-        the families this package can build are counted."""
+        """Parameter count from the specs (for MODEL_FLOPS = 6·N·D)."""
         from .api import build_model
         return count_params(build_model(self).param_specs())
 
@@ -107,7 +106,7 @@ class ArchConfig:
 class Spec:
     shape: Tuple[int, ...]
     dtype: torch.dtype = torch.bfloat16
-    init: str = "normal"            # normal | zeros | ones
+    init: str = "normal"            # normal | zeros | ones | small
     scale: float = 1.0
 
 
@@ -137,8 +136,8 @@ def map_specs(specs: Params, fn, prefix: str = "") -> Params:
 def init_params(specs: Params, seed: int = 0, device=None) -> Params:
     """Materialize ``specs`` on ``device`` (default: the first CUDA card)
     from one ``torch.Generator`` seeded with ``seed``, leaves drawn in
-    sorted key order.  The reference's scale rule: ``normal`` leaves are
-    fp32 draws times ``scale / sqrt(shape[-2])`` (``shape[-1]`` for 1-D),
+    sorted key order.  The reference's scale rule: ``normal`` (and
+    ``small``) leaves are fp32 draws times ``scale / sqrt(shape[-2])`` (``shape[-1]`` for 1-D),
     cast to the spec's dtype — so a ``[vocab, d]`` embedding gets
     ``1/sqrt(vocab)``.  The bits differ from ``jax.random``'s; tests hand
     the reference's weights over with ``convert.params_from_jax``."""

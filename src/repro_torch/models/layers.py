@@ -1,20 +1,22 @@
-"""Transformer building blocks: RMSNorm, RoPE, GQA attention (causal
-prefill / forward, and the KV-cache decode step through kernel B5),
-SwiGLU / GELU MLP — the counterpart of ``repro.models.layers``.
+"""Transformer building blocks: RMSNorm, RoPE, GQA attention (full /
+causal / sliding-window prefill and forward, cross-attention, and the
+KV-cache decode step through kernel B5), SwiGLU / GELU MLP — the
+counterpart of ``repro.models.layers``.
 
 The arithmetic and its rounding points follow the reference: RMSNorm
 reduces in fp32 and casts before the weight, RoPE is the half-split
 variant with ``theta^(-i/half)`` frequencies, prefill scores are a
 working-dtype product divided in fp32, the softmax runs in fp32 and its
-probabilities are cast back before the value product.  The decode
-attention core is :func:`repro_torch.kernels.flash_decode.flash_decode_call`
-and nothing else.  Sliding-window attention is not ported
-(``transformer.DecoderLM`` refuses such configs).
+probabilities are cast back before the value product.  The attention
+window is a per-layer Python int (-1 = global), the reference's dynamic
+scalar.  The decode attention core is
+:func:`repro_torch.kernels.flash_decode.flash_decode_call` and nothing
+else.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -75,26 +77,51 @@ def _project_qkv(x, p: Params, cfg: ArchConfig, positions):
 
 
 def attention(x: torch.Tensor, p: Params, cfg: ArchConfig,
-              positions: torch.Tensor) -> torch.Tensor:
-    """Causal self-attention over ``x [b, s, d]`` at absolute
-    ``positions [b, s]``."""
-    q, k, v = _project_qkv(x, p, cfg, positions)
-    return _attend(q, k, v, positions, positions, p["wo"], cfg)
+              positions: torch.Tensor, window: int = -1,
+              causal: bool = True,
+              kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Self-attention over ``x [b, s, d]`` at absolute ``positions
+    [b, s]`` (RoPE on q and k), or cross-attention to ``kv = (k, v)``
+    ``[b, sk, n_kv, hd]`` at ``kv_positions`` (no RoPE, as the
+    reference)."""
+    if kv is None:
+        q, k, v = _project_qkv(x, p, cfg, positions)
+        k_pos = positions
+    else:
+        b, s, _ = x.shape
+        q = torch.matmul(x, p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+        (k, v), k_pos = kv, kv_positions
+    return _attend(q, k, v, positions, k_pos, p["wo"], cfg, window, causal)
 
 
-def _attend_block(q, k, v, q_pos, k_pos):
-    """Unchunked grouped-GQA causal core: q [b,sq,kv,g,hd] x k/v
-    [b,sk,kv,hd] -> [b,sq,kv,g,hd], without a head-repeated KV copy."""
+def _window_mask(q_pos, k_pos, window: int, causal: bool) -> torch.Tensor:
+    """``[.., sq] x [.., sk]`` positions -> the boolean mask ``[.., sq,
+    sk]`` of the keys each query sees: ``q >= k`` when ``causal``, and
+    ``q - k <= window`` for a window >= 0."""
+    diff = q_pos[..., :, None] - k_pos[..., None, :]
+    ok = torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
+    if causal:
+        ok &= diff >= 0
+    if window >= 0:
+        ok &= diff <= window
+    return ok
+
+
+def _attend_block(q, k, v, q_pos, k_pos, window: int, causal: bool):
+    """Unchunked grouped-GQA core: q [b,sq,kv,g,hd] x k/v [b,sk,kv,hd]
+    -> [b,sq,kv,g,hd], without a head-repeated KV copy."""
     hd = q.shape[-1]
     scores = torch.einsum("bqkgd,bskd->bkgqs", q, k).float() \
         / math.sqrt(hd)
-    ok = (q_pos[..., :, None] - k_pos[..., None, :]) >= 0     # causal
+    ok = _window_mask(q_pos, k_pos, window, causal)
     scores = scores.masked_fill(~ok[:, None, None], -1e30)
     attn = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bkgqs,bskd->bqkgd", attn, v)
 
 
-def _attend(q, k, v, q_pos, k_pos, wo, cfg: ArchConfig):
+def _attend(q, k, v, q_pos, k_pos, wo, cfg: ArchConfig, window: int = -1,
+            causal: bool = True):
     """Attention with the reference's query-block chunking: the
     ``[b, h, sq, sk]`` scores exist one ``cfg.attn_q_chunk`` block at a
     time when ``sq`` is a multiple of it, else in one block."""
@@ -108,20 +135,22 @@ def _attend(q, k, v, q_pos, k_pos, wo, cfg: ArchConfig):
     q_pos = q_pos.expand(b, sq)
     chunk = cfg.attn_q_chunk
     if sq <= chunk or sq % chunk != 0:
-        o = _attend_block(qg, k, v, q_pos, k_pos)
+        o = _attend_block(qg, k, v, q_pos, k_pos, window, causal)
     else:
         o = torch.cat([_attend_block(qg[:, c0:c0 + chunk], k, v,
-                                     q_pos[:, c0:c0 + chunk], k_pos)
+                                     q_pos[:, c0:c0 + chunk], k_pos, window,
+                                     causal)
                        for c0 in range(0, sq, chunk)], dim=1)
     return torch.matmul(o.reshape(b, sq, h * hd), wo)
 
 
 def attention_decode(x: torch.Tensor, p: Params, cfg: ArchConfig,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
-                     pos: torch.Tensor, lengths: torch.Tensor
-                     ) -> torch.Tensor:
+                     pos: torch.Tensor, lengths: torch.Tensor,
+                     window: int = -1) -> torch.Tensor:
     """One decode step of one layer: append K/V at ``pos`` and attend over
-    the filled prefix ``[0, pos]`` through kernel B5.
+    the filled prefix ``[0, pos]`` (the last ``window + 1`` positions of
+    it for a window >= 0) through kernel B5.
 
     x [b, 1, d]; cache_k / cache_v [b, n_kv, smax, hd] (this layer's slab,
     written in place); pos [b] int64; lengths [b * n_kv] int32 (``pos``
@@ -135,7 +164,8 @@ def attention_decode(x: torch.Tensor, p: Params, cfg: ArchConfig,
     g = cfg.n_heads // n_kv
     o = _fd.flash_decode_call(q.reshape(b * n_kv, g, hd),
                               cache_k.reshape(b * n_kv, smax, hd),
-                              cache_v.reshape(b * n_kv, smax, hd), lengths)
+                              cache_v.reshape(b * n_kv, smax, hd), lengths,
+                              window)
     return torch.matmul(o.reshape(b, 1, cfg.n_heads * hd), p["wo"])
 
 
@@ -160,9 +190,17 @@ def mlp_specs(cfg: ArchConfig, d_ff: Optional[int] = None) -> Params:
     return {"w_up": Spec((d, f), dt), "w_down": Spec((f, d), dt)}
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)`` with the reference's rounding points: its
+    sigmoid is ``1 / (1 + exp(-x))``, each operation rounded to x's
+    dtype (bit for bit ``jax.nn.silu`` in bf16 on the CPU; ``F.silu``
+    rounds once and differs from it in a third of bf16 values)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
     if "w_gate" in p:                                    # SwiGLU
-        h = F.silu(torch.matmul(x, p["w_gate"]))
+        h = silu(torch.matmul(x, p["w_gate"]))
         h = h * torch.matmul(x, p["w_up"])
     else:                      # GELU, tanh form as jax.nn.gelu's default
         h = F.gelu(torch.matmul(x, p["w_up"]), approximate="tanh")

@@ -1,23 +1,27 @@
-"""Decoder-only transformer LM (dense and VLM-backbone variants) — the
-counterpart of ``repro.models.transformer``.
+"""Decoder-only transformer LM (dense, MoE and VLM-backbone variants) —
+the counterpart of ``repro.models.transformer``.
 
 Parameters keep the reference's tree, per-layer weights stacked on a
 leading ``[L, ...]`` axis; the layer loop is a Python loop over views of
-that stack.  Entry points:
+that stack, each layer with its attention window from
+:func:`window_pattern` (-1 = global; gemma3's 5 local : 1 global).  MoE
+layers use the sort-based dispatch in ``moe.py``.  Entry points:
 
   ``logits``      — forward over a whole sequence (scoring)
   ``prefill``     — prompt forward that also fills the KV cache
   ``decode_step`` — single-token step against the cache; its attention
-                    core is kernel B5 (``kernels/flash_decode.py``)
+                    core is kernel B5 (``kernels/flash_decode.py``), which
+                    takes the layer's window
 
 KV cache layout: ``{"k", "v"}`` each ``[L, b, n_kv, smax, hd]`` in the
 compute dtype (the reference's is ``[L, b, smax, n_kv, hd]``), so one
 (batch, kv-head) row of a layer is one contiguous ``[smax, hd]`` slab, the
 row B5 reads.  ``prefill`` and ``decode_step`` write the cache they are
-given in place and return it.
+given in place and return it.  A windowed layer keeps the full-length
+cache and B5 reads only the window of it.
 
-MoE layers, sliding-window attention and the training loss are not
-ported yet; they raise ``NotImplementedError`` naming their ROADMAP item.
+The training loss is not ported yet; it raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -31,12 +35,24 @@ from .common import ArchConfig, Params, Spec, map_specs
 from .layers import (_attend, _project_qkv, attention, attention_decode,
                      attention_specs, embed, embed_specs, mlp, mlp_specs,
                      rms_norm, unembed)
+from .moe import moe, moe_specs
 
 
 def unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP Queue A item "
         f"{item})")
+
+
+def window_pattern(cfg: ArchConfig) -> np.ndarray:
+    """Per-layer attention window (int32, -1 = global): every
+    ``global_every``-th layer global, the others ``sliding_window``."""
+    if cfg.sliding_window is None:
+        return np.full(cfg.n_layers, -1, np.int32)
+    w = np.full(cfg.n_layers, cfg.sliding_window, np.int32)
+    if cfg.global_every:
+        w[cfg.global_every - 1::cfg.global_every] = -1    # every Nth global
+    return w
 
 
 def _layer(params: Params, i: int) -> Params:
@@ -51,14 +67,13 @@ def _tokens(tokens, device: torch.device) -> torch.Tensor:
 
 
 class DecoderLM:
-    """Config-driven decoder-only LM (families ``dense`` and ``vlm``)."""
+    """Config-driven decoder-only LM (families ``dense``, ``moe`` and
+    ``vlm``)."""
 
     def __init__(self, cfg: ArchConfig):
-        if cfg.family not in ("dense", "vlm"):
-            raise unported(f"the {cfg.family!r} family", "12b")
-        if cfg.sliding_window is not None:
-            raise unported(f"sliding-window attention ({cfg.name})", "12b")
         self.cfg = cfg
+        self.is_moe = cfg.family == "moe"
+        self.windows = [int(w) for w in window_pattern(cfg)]
 
     # -- parameters ---------------------------------------------------------
     def _layer_specs(self) -> Params:
@@ -68,7 +83,7 @@ class DecoderLM:
             "ln1": Spec((cfg.d_model,), dt, init="ones"),
             "ln2": Spec((cfg.d_model,), dt, init="ones"),
             "attn": attention_specs(cfg),
-            "ffn": mlp_specs(cfg),
+            "ffn": moe_specs(cfg) if self.is_moe else mlp_specs(cfg),
         }
 
     def param_specs(self) -> Params:
@@ -87,22 +102,33 @@ class DecoderLM:
         return out
 
     # -- forward (scoring) ----------------------------------------------------
-    def _block(self, x, p: Params, positions):
+    def _ffn(self, h, p: Params) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The layer's MLP or MoE: ``(y, aux)``."""
+        if self.is_moe:
+            return moe(h, p, self.cfg)
+        return mlp(h, p), torch.zeros((), dtype=torch.float32,
+                                      device=h.device)
+
+    def _block(self, x, p: Params, window: int, positions):
         cfg = self.cfg
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        x = x + attention(h, p["attn"], cfg, positions)
+        x = x + attention(h, p["attn"], cfg, positions, window)
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + mlp(h, p["ffn"])
+        y, aux = self._ffn(h, p["ffn"])
+        return x + y, aux
 
     def hidden_states(self, params: Params, x: torch.Tensor,
                       positions: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Final-norm hidden states and the (zero) auxiliary loss."""
+        """Final-norm hidden states and the summed MoE auxiliary loss
+        (zero for a dense model)."""
         cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.n_layers):
-            x = self._block(x, _layer(params["layers"], i), positions)
-        return (rms_norm(x, params["final_norm"], cfg.norm_eps),
-                torch.zeros((), dtype=torch.float32, device=x.device))
+            x, a = self._block(x, _layer(params["layers"], i),
+                               self.windows[i], positions)
+            aux = aux + a
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
     def inputs_embeds(self, params: Params, tokens,
                       patches: Optional[torch.Tensor] = None
@@ -153,18 +179,19 @@ class DecoderLM:
             h = rms_norm(x, p["ln1"], cfg.norm_eps)
             q, k, v = _project_qkv(h, p["attn"], cfg, positions)
             x = x + _attend(q, k, v, positions, positions, p["attn"]["wo"],
-                            cfg)
+                            cfg, self.windows[i])
             cache["k"][i, :, :, :s] = k.transpose(1, 2)
             cache["v"][i, :, :, :s] = v.transpose(1, 2)
             h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-            x = x + mlp(h2, p["ffn"])
+            x = x + self._ffn(h2, p["ffn"])[0]
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return unembed(h[:, -1:], params["embed"]), cache
 
     def decode_step(self, params: Params, token, cache: Params, pos):
         """token [b, 1], pos [b] current positions (each ``< smax``).
         Returns ``(logits [b, 1, vocab], cache)``, the token's K/V written
-        into ``cache`` in place; each layer's attention is one B5 launch."""
+        into ``cache`` in place; each layer's attention is one B5 launch
+        with the layer's window."""
         cfg = self.cfg
         dev = params["final_norm"].device
         pos = torch.as_tensor(pos, device=dev).long()
@@ -174,8 +201,9 @@ class DecoderLM:
             p = _layer(params["layers"], i)
             h = rms_norm(x, p["ln1"], cfg.norm_eps)
             x = x + attention_decode(h, p["attn"], cfg, cache["k"][i],
-                                     cache["v"][i], pos, lengths)
+                                     cache["v"][i], pos, lengths,
+                                     self.windows[i])
             h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-            x = x + mlp(h2, p["ffn"])
+            x = x + self._ffn(h2, p["ffn"])[0]
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return unembed(h, params["embed"]), cache

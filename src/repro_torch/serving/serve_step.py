@@ -36,7 +36,8 @@ def sample_logits(logits: torch.Tensor,
 
 def make_serve_fns(model, temperature: float = 0.0, top_k: int = 0):
     """Returns (prefill_fn, decode_fn):
-    prefill_fn(params, tokens, cache, extra=None) -> (next_token, cache)
+    prefill_fn(params, tokens, cache, extra=None) -> (next_token, cache),
+    ``extra`` handed to ``model.prefill`` (VLM patches, whisper's frames)
     decode_fn(params, token, cache, pos, generator) -> (next_token, logits,
     cache).  Both write ``cache`` in place."""
 
@@ -57,9 +58,11 @@ def generate(model, params, prompt_tokens, max_new: int,
              max_len: Optional[int] = None, temperature: float = 0.0,
              seed: int = 0, extra=None) -> torch.Tensor:
     """Greedy / temperature generation loop: ``[b, max_new]`` int32 tokens
-    on the parameters' device.  With VLM patches (``extra``) the decode
-    positions continue after the patch and prompt positions the prefill
-    filled (the reference restarts them at the prompt length)."""
+    on the parameters' device.  ``extra`` goes to the prefill (whisper's
+    frames ``[b, n_frames, d_model]``, or VLM patches).  With VLM patches
+    the decode positions continue after the patch and prompt positions
+    the prefill filled (the reference restarts them at the prompt
+    length)."""
     dev = params_device(params)
     prompt = torch.as_tensor(np.asarray(prompt_tokens) if not isinstance(
         prompt_tokens, torch.Tensor) else prompt_tokens, device=dev)

@@ -618,7 +618,7 @@ def _decode_close(got, want):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g", [1, 2, 8, 12, 16])
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
 def test_flash_decode_kernel_matches_twin(card, dtype, g, hd):
     from repro_torch.kernels.flash_decode import (flash_decode_call,
                                                   flash_decode_plain)
@@ -643,7 +643,7 @@ def test_flash_decode_kernel_split_counts(card, bkv, smax):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
 def test_flash_decode_kernel_ragged_lengths(card, dtype, hd):
     """96 rows holding 1, 2, one tile + 1, four tiles, four tiles + 1 and
     smax keys (inclusive lengths 0, 1, tile, 4 tiles - 1, 4 tiles,
@@ -672,6 +672,36 @@ def test_flash_decode_kernel_ragged_lengths(card, dtype, hd):
         torch.cuda.synchronize()
         assert torch.equal(first, second)
         assert _decode_close(first, flash_decode_plain(q, k, v, lengths))
+
+
+@pytest.mark.parametrize("window", [0, 5, 70, 512, 5000])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_window_matches_twin(card, dtype, hd, window):
+    """Windowed rows (window 0, one that starts inside a tile, gemma3's
+    512, one longer than every prefix) beside lengths 0, 1, a tile, four
+    tiles - 1, four tiles and smax - 1, for groups 1, 4 and 16: the
+    kernel reads only the window's tiles and masks the first one's keys
+    before the window; two calls in a row agree bit for bit, and each
+    counts one windowed launch."""
+    from repro_torch.kernels import flash_decode as fd
+    bkv, smax = 96, 2000
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for g in (1, 4, 16):
+        ts = fd.launch_config(bkv, g, smax, hd, dtype, sms)["tile"]
+        pattern = [0, 1, ts, 4 * ts - 1, 4 * ts, smax - 1]
+        lengths = torch.tensor([pattern[i % 6] for i in range(bkv)],
+                               dtype=torch.int32, device=card)
+        q, k, v, _ = _decode_inputs(card, bkv, g, smax, hd, dtype,
+                                    hd + g + window)
+        before = fd.windowed_launch_count()
+        first = fd.flash_decode_call(q, k, v, lengths, window)
+        second = fd.flash_decode_call(q, k, v, lengths, window)
+        torch.cuda.synchronize()
+        assert fd.windowed_launch_count() == before + 2
+        assert torch.equal(first, second)
+        assert _decode_close(first, fd.flash_decode_plain(q, k, v, lengths,
+                                                          window))
 
 
 @pytest.mark.parametrize("case", ["hd", "g", "dtype", "contiguous"])

@@ -185,7 +185,7 @@ def _b5_smem(bkv, hd, size, gc):
             + 2 * 4 * gc * 4 + 16 + (bkv + 1 + 3) // 4 * 16)
 
 
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_launch_configs_fit(dtype, hd):
     size = 4 if dtype == torch.float32 else 2

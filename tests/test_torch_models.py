@@ -32,6 +32,7 @@ from repro.models import init_params as jax_init_params
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import (build_model, count_params, init_params,
                                 params_from_jax)
+from repro_torch.models.common import iter_specs
 
 torch.set_num_threads(1)
 
@@ -162,12 +163,31 @@ def test_configs_match_reference(arch, smoke):
     assert mine == theirs
 
 
-@pytest.mark.parametrize("arch", ["internvl2-2b", "codeqwen1.5-7b",
-                                  "starcoder2-15b", "minicpm-2b"])
+@pytest.mark.parametrize("arch", JAX_ARCH_IDS)
 def test_param_count_matches_reference(arch):
     cfg = get_config(arch)
     assert cfg.n_params() == jax_get_config(arch).n_params()
     assert count_params(build_model(cfg).param_specs()) == cfg.n_params()
+
+
+@pytest.mark.parametrize("arch", JAX_ARCH_IDS)
+def test_every_config_builds_with_the_reference_tree(arch):
+    """Every family builds, and its spec tree has the reference's paths,
+    shapes and dtypes leaf for leaf (what ``params_from_jax`` relies
+    on)."""
+    from repro.models.common import Spec as JaxSpec
+    cfg = get_config(arch, smoke=True)
+    mine = dict(iter_specs(build_model(cfg).param_specs()))
+    theirs = jax.tree_util.tree_flatten_with_path(
+        jax_build_model(jax_get_config(arch, smoke=True)).param_specs(),
+        is_leaf=lambda v: isinstance(v, JaxSpec))[0]
+    theirs = {".".join(k.key for k in path): sp for path, sp in theirs}
+    assert set(mine) == set(theirs)
+    for path, sp in mine.items():
+        assert sp.shape == theirs[path].shape, path
+        assert str(sp.dtype).split(".")[-1] == \
+            jnp.dtype(theirs[path].dtype).name, path
+        assert sp.init == theirs[path].init, path
 
 
 def test_init_params_scale_rule_and_seed():
@@ -201,15 +221,6 @@ def test_params_from_jax_rejects_a_wrong_shape():
     npp["final_norm"] = npp["final_norm"][:-1]
     with pytest.raises(ValueError, match="final_norm"):
         params_from_jax(npp, cfg, device="cpu")
-
-
-@pytest.mark.parametrize("arch,item", [
-    ("qwen2-moe-a2.7b", "12b"), ("qwen3-moe-235b-a22b", "12b"),
-    ("falcon-mamba-7b", "12b"), ("zamba2-2.7b", "12b"),
-    ("whisper-medium", "12b"), ("gemma3-1b", "12b")])
-def test_unported_configs_raise_naming_their_item(arch, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        build_model(get_config(arch, smoke=True))
 
 
 def test_loss_raises_naming_the_training_item():

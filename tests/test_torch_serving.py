@@ -318,4 +318,5 @@ def test_serve_launcher_runs_on_the_cpu(capsys):
     done = main(["--device", "cpu", "--requests", "5", "--slots", "2",
                  "--max-new", "4", "--max-len", "32"])
     assert len(done) == 5
-    assert "served 5 requests" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "served 5 requests" in out and "gemma3-1b" in out
