@@ -38,7 +38,13 @@ call it made.  Last (phase 8) it serves a geo-temporal workload of 4
 tenants over one shared substrate through ``CubeGraphService`` (kernel
 B1's grouped launch), checks isolation, recall and a recorded flush
 answered grouped against the same requests answered solo, bit for bit,
-and times the grouped launch on that flush.
+and times the grouped launch on that flush.  Phase 9 then trains
+gemma3-1b at its published width in bf16 (remat on, AdamW, the synthetic
+stream at 4 x 1024 tokens): the loss must fall, accumulation over two
+microbatches must give the one-batch loss, and the step is timed, traced
+and split into its parts; one train step of each family's smoke config
+in fp32 is held to the same step on the CPU, and the training launcher
+checkpoints, resumes and must consume the same batches.
 
 The last three lines of standard output are the card's name and power
 limit (from ``nvidia-smi``), a JSON object describing every kernel, and
@@ -109,6 +115,8 @@ MAX_NEW = 32
 RECORD_TICK = 16        # the batcher tick (first wave) whose B5 inputs ...
 RECORD_LAYER = 12       # ... of this layer are recorded, checked and timed
 PROFILE_TICK = 24       # the batcher tick traced with torch.profiler
+PROFILE_TRIES = 3       # profiler sessions before a device time counts as
+                        # not measured (a CUPTI trace can come back empty)
 N_FORWARD = 2           # requests whose decode logits are held to a forward
 # Decode vs forward: |diff| <= LOGIT_TOL * rms(row) of the forward's
 # logits.  bf16 rounds each result to 8 bits (2^-9 relative); the decode
@@ -148,6 +156,29 @@ RAG_QUERY_TOKENS = 32
 RAG_K = 8
 RAG_MAX_NEW = 16
 RAG_CONTEXT = 2048
+# Training (9): gemma3-1b at its published width in bf16 (default remat
+# "full"), random weights from SEED, the synthetic learnable stream at
+# TRAIN_BATCH x TRAIN_SEQ (past the 512-token window), OptConfig defaults
+# but TRAIN_LR (the training launcher's default); TRAIN_WARMUP untimed
+# steps, then TRAIN_STEPS timed.  Then one step of each family's smoke
+# config in fp32 on the card against the CPU (TRAIN_FAMILIES, the CPU
+# parity tests' tolerances), and the launcher's resume leg (RESUME_STEPS
+# with a checkpoint every RESUME_EVERY, then a second run from the last).
+TRAIN_ARCH = "gemma3-1b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+TRAIN_LR = 1e-3
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+TRAIN_ACCUM_RTOL = 2e-2         # accum 2 vs accum 1 on one batch (bf16)
+TRAIN_FAMILIES = ("codeqwen1.5-7b", "gemma3-1b", "qwen2-moe-a2.7b",
+                  "internvl2-2b", "falcon-mamba-7b", "zamba2-2.7b",
+                  "whisper-medium")
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
+RESUME_STEPS, RESUME_EVERY = 12, 4
+# The resumed run's losses against the uninterrupted run's: the state
+# restored is equal bit for bit, but the card's atomics (embedding and
+# index_add_ backward) need not add in the same order twice.
+RESUME_LOSS_RTOL = 1e-3
+PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16
 
 
 def log(msg: str) -> None:
@@ -210,25 +241,44 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
-def device_ms(torch, fn, iters: int, warmup: int = 2) -> float:
+def device_ms(torch, fn, iters: int, warmup: int = 2,
+              tries: int = PROFILE_TRIES):
     """Mean device time of ``fn``: the summed durations of the kernels
     ``iters`` calls ran, under ``torch.profiler``.  Unlike ``cuda_ms`` it
     leaves out the host's gaps between launches, which decide the
-    back-to-back time of a kernel shorter than its wrapper's host time."""
+    back-to-back time of a kernel shorter than its wrapper's host time.
+    A session whose CUPTI trace comes back without a device event is made
+    again, up to ``tries`` sessions; after that the device time is not
+    measured (None) and the CUDA-event times stand alone."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    check(us > 0, "torch.profiler recorded no device time")
-    return us / 1e3 / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    log(f"torch.profiler recorded no device time in {tries} sessions: "
+        f"device time not measured")
+    return None
+
+
+def fmt_ms(ms, digits: int = 4) -> str:
+    """``ms`` with ``digits`` decimals and its unit, or "not measured"
+    where the profiler recorded no device time."""
+    return "not measured" if not ms else f"{ms:.{digits}f} ms"
+
+
+def fmt_share(share) -> str:
+    """An idle share to three decimals, or "not measured" (None)."""
+    return "not measured" if share is None else f"{share:.3f}"
 
 
 def compare_topk(torch, kd, ki, td, ti, scale, what: str) -> float:
@@ -1812,10 +1862,10 @@ def main_serving(torch, dev, seed: int, keep: dict) -> dict:
     t0 = time.perf_counter()
     prof = profile_tick(torch, wl.service.flush)
     wall = (time.perf_counter() - t0) * 1e3
-    idle = 1.0 - prof["device_ms"] / wall
+    idle = 1.0 - prof["device_ms"] / wall if prof["device_ms"] else None
     log(f"serving: a traced flush: {wall:.1f} ms host clock (profiler on), "
-        f"{prof['device_ms']:.3f} ms device time in {prof['kernels']} "
-        f"kernels, idle share {idle:.3f}; top {prof['top']}")
+        f"{fmt_ms(prof['device_ms'], 3)} device time in {prof['kernels']} "
+        f"kernels, idle share {fmt_share(idle)}; top {prof['top']}")
     # the per-group fallback: a store on the graph read path (tenant 0's
     # documents) answers a heterogeneous batch group by group (B4)
     coll = wl.store.collection(wl.tenants[0])
@@ -2064,16 +2114,22 @@ def phase_kernels_decode(torch, dev, seed: int, errs: dict) -> None:
         f"128 / 256; lengths 0 and smax - 1) agree; max |err| {err:.3g}")
 
 
-def profile_tick(torch, step) -> dict:
+def profile_tick(torch, step, tries: int = 1) -> dict:
     """One call of ``step`` under ``torch.profiler``: the device time of
-    the kernels it ran (their summed durations), their count and the five
-    largest by name."""
+    the kernels it ran (their summed durations), their count, the five
+    largest by name and the eight operators with the most device time of
+    their own (``ops``).  A device time of 0 means the trace held no
+    device event; a ``step`` that may run again is traced again then, up
+    to ``tries`` sessions."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            break
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -2081,8 +2137,13 @@ def profile_tick(torch, step) -> dict:
                                + e.time_range.elapsed_us() / 1e3)
     n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    ops = [(e.key, getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0)) / 1e3)
+           for e in prof.key_averages()]
+    ops = sorted(ops, key=lambda kv: -kv[1])[:8]
     return dict(device_ms=sum(by_name.values()), kernels=n,
-                top=[(name[:60], round(ms, 4)) for name, ms in top])
+                top=[(name[:60], round(ms, 4)) for name, ms in top],
+                ops=[(name, round(ms, 3)) for name, ms in ops])
 
 
 def logits_close(torch, dec, fwd, what: str):
@@ -2225,19 +2286,17 @@ def hold_layers(torch, model, params, tokens, what: str) -> dict:
     from repro_torch.models import ssm
     from repro_torch.models.layers import (attention, attention_decode,
                                            embed, mlp, rms_norm)
-    from repro_torch.models.transformer import _layer
+    from repro_torch.models.transformer import _layers
     cfg, dev = model.cfg, params["final_norm"].device
     b, n = tokens.shape
     eps, chunk = cfg.norm_eps, model._chunk(n)
     if cfg.family == "ssm":
-        blocks = [("ssm", _layer(params["layers"], i))
-                  for i in range(cfg.n_layers)]
+        blocks = [("ssm", p) for p in _layers(params["layers"])]
         scan, step = ssm.mamba1_scan, ssm.mamba1_decode
     else:
         blocks = []
-        for g in range(model.n_groups):
-            pg = _layer(params["ssm_layers"], g)
-            blocks += [("ssm", _layer(pg, j)) for j in range(cfg.attn_every)]
+        for pg in _layers(params["ssm_layers"]):
+            blocks += [("ssm", p) for p in _layers(pg)]
             blocks.append(("attn", params["shared"]))
         scan, step = ssm.mamba2_scan, ssm.mamba2_decode
     positions = torch.arange(n, device=dev)[None, :]
@@ -2790,6 +2849,311 @@ def main_families(torch, dev, seed: int, keep: dict) -> dict:
     return dict(launches=launches, numbers=numbers)
 
 
+def train_flops(model, n_params: int, batch: int, seq: int) -> dict:
+    """Model FLOPs of one train step of a decoder LM (an estimate): 6 x
+    parameters x tokens (forward and backward; the tied unembedding is
+    the one product of the vocab table), the attention products over the
+    (query, key) pairs each layer's causal window lets through (forward
+    4 x heads x hd a pair, backward twice that), and remat's second
+    forward of every layer body."""
+    cfg = model.cfg
+    tokens = batch * seq
+    q = seq
+    pairs = 0
+    for w in model.windows:
+        if w < 0:
+            pairs += q * (q + 1) // 2
+        else:
+            full = min(q, w + 1)
+            pairs += full * (full + 1) // 2 + (q - full) * (w + 1)
+    attn_fwd = 4 * cfg.n_heads * cfg.hd * pairs * batch
+    body = n_params - cfg.vocab * cfg.d_model - cfg.d_model
+    remat = (2 * body * tokens + attn_fwd) if (
+        cfg.remat and cfg.remat_policy != "none") else 0
+    total = 6 * n_params * tokens + 3 * attn_fwd + remat
+    return dict(total=total, dense=6 * n_params * tokens,
+                attention=3 * attn_fwd, remat=remat)
+
+
+def _family_batch(cfg, seed: int) -> dict:
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(0, cfg.vocab, size=(4, 32)),
+         "labels": rng.integers(-1, cfg.vocab, size=(4, 32))}
+    if cfg.n_enc_layers:
+        b["frames"] = rng.normal(size=(4, cfg.n_frames, cfg.d_model)
+                                 ).astype(np.float32)
+    if cfg.n_patches:
+        b["patches"] = rng.normal(size=(4, cfg.n_patches, cfg.d_model)
+                                  ).astype(np.float32)
+    return b
+
+
+def train_families(torch, dev, seed: int) -> dict:
+    """Phase 9b: each family's smoke config in fp32 (remat on), its loss
+    and gradients on the card held to the same on the CPU, then one train
+    step on the card.  Returns the worst relative differences."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_params
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 loss_and_grads,
+                                                 make_train_step)
+    from repro_torch.training.tree import leaves, tree_map
+    worst = {}
+    for arch in TRAIN_FAMILIES:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  dtype="float32", remat=True)
+        model = build_model(cfg)
+        cpu_p = init_params(model.param_specs(), seed=seed, device="cpu")
+        batch = _family_batch(cfg, seed + 90)
+        out = {}
+        for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            p = tree_map(lambda t: t.to(d, copy=True), cpu_p)
+            b = {k: torch.as_tensor(v, device=d) for k, v in batch.items()}
+            loss, grads = loss_and_grads(model, p, b)
+            out[name] = (float(loss), [g.cpu() for g in leaves(grads)])
+            if name == "card":
+                state, m = make_train_step(model, OptConfig())(
+                    init_train_state(p), b)
+                check(all(bool(torch.isfinite(t).all())
+                          for t in leaves(state["params"]))
+                      and math.isfinite(float(m["loss"])),
+                      f"9b {arch}: the train step on the card is not "
+                      f"finite")
+        (l0, g0), (l1, g1) = out["cpu"], out["card"]
+        loss_rel = abs(l1 - l0) / abs(l0)
+        grad_rel = max(float((a - b).abs().max())
+                       / max(float(a.abs().max()), 1e-30)
+                       for a, b in zip(g0, g1))
+        log(f"9b {arch} ({cfg.family}, fp32 smoke): loss card {l1:.6f} cpu "
+            f"{l0:.6f} (rel {loss_rel:.2e}); worst gradient leaf "
+            f"{grad_rel:.2e} of its max")
+        check(loss_rel <= TRAIN_LOSS_RTOL, f"9b {arch}: loss differs from "
+              f"the CPU's by {loss_rel:.2e} > {TRAIN_LOSS_RTOL}")
+        check(grad_rel <= TRAIN_GRAD_RTOL, f"9b {arch}: a gradient differs "
+              f"from the CPU's by {grad_rel:.2e} x its max > "
+              f"{TRAIN_GRAD_RTOL}")
+        worst[arch] = dict(loss_rel=loss_rel, grad_rel=grad_rel)
+    return worst
+
+
+def train_resume(torch, dev) -> dict:
+    """Phase 9c: ``launch.train --smoke`` on the card for RESUME_STEPS
+    steps with a checkpoint every RESUME_EVERY, the last checkpoint
+    restored onto the card and held to its manifest's sha256, then a
+    second run from it: the same batches bit for bit, losses within
+    RESUME_LOSS_RTOL."""
+    import hashlib
+    import shutil
+    import tempfile
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.tree import leaves_with_paths
+    tmp = tempfile.mkdtemp(prefix="train-resume-")
+    try:
+        argv = ["--smoke", "--device", str(dev), "--steps",
+                str(RESUME_STEPS), "--ckpt-every", str(RESUME_EVERY),
+                "--ckpt-dir", tmp, "--log-every", str(RESUME_EVERY)]
+        first = launch_train.main(argv)
+        cm = CheckpointManager(tmp)
+        last = cm.available_steps()[-1]
+        check(first["resumed_from"] is None and last == RESUME_STEPS - RESUME_EVERY,
+              f"9c: checkpoints {cm.available_steps()}")
+        restored, manifest = cm.restore(first["state"])
+        n_leaves = 0
+        for path, t in leaves_with_paths(restored):
+            key = "/".join(str(p) for p in path)
+            check(t.device == dev, f"9c: {key} restored on {t.device}")
+            h = t.detach().cpu().contiguous()
+            if h.dtype == torch.bfloat16:
+                h = h.view(torch.int16)
+            check(hashlib.sha256(h.numpy().tobytes()).hexdigest()
+                  == manifest["leaves"][key]["sha256"],
+                  f"9c: {key} restored on the card differs from the saved "
+                  f"bytes")
+            n_leaves += 1
+        second = launch_train.main(argv)
+        check(second["resumed_from"] == last,
+              f"9c: resumed from {second['resumed_from']}, not {last}")
+        after = sorted(second["losses"])
+        check(after == list(range(last + 1, RESUME_STEPS)),
+              f"9c: the resumed run trained steps {after}")
+        worst = 0.0
+        for s in after:
+            check(second["batches"][s] == first["batches"][s],
+                  f"9c: the resumed run's batch {s} differs")
+            worst = max(worst, abs(second["losses"][s] - first["losses"][s])
+                        / abs(first["losses"][s]))
+        log(f"9c resume: {n_leaves} leaves restored on the card equal their "
+            f"sha256; resumed at step {last} (data cursor "
+            f"{manifest['extra']['data_step']}), batches {after} equal bit "
+            f"for bit, losses within {worst:.2e} relative "
+            f"({[round(second['losses'][s], 5) for s in after]} vs "
+            f"{[round(first['losses'][s], 5) for s in after]})")
+        check(worst <= RESUME_LOSS_RTOL, f"9c: resumed losses differ by "
+              f"{worst:.2e} > {RESUME_LOSS_RTOL}")
+        return dict(loss_rel=worst, leaves=n_leaves, resumed_from=last)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_breakdown(torch, model, state, batch, oc) -> dict:
+    """Phase 9a's step in parts, CUDA events over 3 calls each: the
+    forward with its loss (no autograd: no remat), the forward and
+    backward (remat's second forward in it), AdamW with the clip over the
+    gradients that gives, and the cross entropy alone (forward and
+    backward over logits of the step's shape)."""
+    from repro_torch.models.losses import cross_entropy
+    from repro_torch.training.optimizer import adamw_update
+    from repro_torch.training.train_step import loss_and_grads
+    params = state["params"]
+    with torch.no_grad():
+        fwd = cuda_ms(torch, lambda: model.loss(params, batch), 3, 1)
+        fwd_ops = profile_tick(torch, lambda: model.loss(params, batch),
+                               tries=PROFILE_TRIES)
+    fwd_bwd = cuda_ms(torch, lambda: loss_and_grads(model, params, batch),
+                      3, 1)
+    _, grads = loss_and_grads(model, params, batch)
+    # (repeated updates move the state on; the checks after this read
+    # only state equality between two copies of it)
+    opt = cuda_ms(torch, lambda: adamw_update(params, grads, state["opt"],
+                                              oc), 3, 1)
+    del grads
+    b, s = batch["tokens"].shape
+    logits = torch.randn((b, s, model.cfg.vocab), device=params[
+        "final_norm"].device).to(torch.bfloat16).requires_grad_()
+    ce = cuda_ms(torch, lambda: torch.autograd.grad(
+        cross_entropy(logits, batch["labels"]), logits), 3, 1)
+    return dict(forward_ms=fwd, forward_backward_ms=fwd_bwd,
+                adamw_ms=opt, cross_entropy_ms=ce,
+                forward_device_ms=fwd_ops["device_ms"],
+                forward_kernels=fwd_ops["kernels"],
+                forward_ops=fwd_ops["ops"])
+
+
+def main_training(torch, dev, seed: int) -> dict:
+    """Phase 9: the training path.  (a) TRAIN_ARCH at its published width
+    in bf16 on the synthetic stream: TRAIN_WARMUP steps, TRAIN_STEPS
+    timed by CUDA events, one traced, then one accum-2 step against the
+    accum-1 step on one batch from the same state; (b) each family's
+    smoke step on the card against the CPU; (c) the launcher's resume."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import build_model, count_params, init_params
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    from repro_torch.training.tree import tree_map
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    n_par = count_params(model.param_specs())
+    t0 = time.perf_counter()
+    state = init_train_state(init_params(model.param_specs(), seed=seed,
+                                         device=dev))
+    torch.cuda.synchronize()
+    oc = OptConfig(lr=TRAIN_LR)
+    log(f"9a {TRAIN_ARCH}: {n_par} parameters in {cfg.dtype}, remat "
+        f"{cfg.remat_policy if cfg.remat else 'none'}, drawn on the card "
+        f"in {time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}; AdamW with OptConfig defaults but lr {oc.lr} "
+        f"({oc.schedule}, warmup {oc.warmup_steps}, wd {oc.weight_decay}, "
+        f"clip {oc.grad_clip})")
+    pipe = SyntheticTokenPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=seed))
+    batches = [to_device(pipe.batch(i), dev)
+               for i in range(TRAIN_WARMUP + TRAIN_STEPS + 1)]
+    step = make_train_step(model, oc)
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_WARMUP):
+        state, m = step(state, batches[i])
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(TRAIN_STEPS + 1)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    for i in range(TRAIN_STEPS):
+        state, m = step(state, batches[TRAIN_WARMUP + i])
+        losses.append(m["loss"])
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(TRAIN_STEPS)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(v) for v in losses]
+    mean_ms = sum(step_ms) / TRAIN_STEPS
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (mean_ms / 1e3)
+    fl = train_flops(model, n_par, TRAIN_BATCH, TRAIN_SEQ)
+    rate = fl["total"] / (mean_ms / 1e3)
+    log(f"9a losses: {[round(v, 4) for v in losses]}")
+    check(all(math.isfinite(v) for v in losses), "9a: a loss is not finite")
+    check(losses[-1] < losses[0], f"9a: the loss did not fall "
+          f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+    # one more step traced: the device's share of it
+    traced = TRAIN_WARMUP + TRAIN_STEPS
+    busy = profile_tick(torch, lambda: step(state, batches[traced]),
+                        tries=PROFILE_TRIES)
+    idle = 1.0 - busy["device_ms"] / mean_ms if busy["device_ms"] else None
+    log(f"9a {TRAIN_ARCH} train step: {mean_ms:.2f} ms mean by CUDA events "
+        f"(min {min(step_ms):.2f}, max {max(step_ms):.2f}; host clock "
+        f"{host_ms:.2f} ms a step; the {TRAIN_WARMUP} warm-up steps "
+        f"{warm_s:.1f} s), {tok_s:,.0f} tokens/s, peak device memory "
+        f"{peak:.2f} GiB; traced step: {fmt_ms(busy['device_ms'], 2)} of "
+        f"device time in {busy['kernels']} kernels, idle share "
+        f"{fmt_share(idle)}; top kernels (ms): {busy['top']}; top "
+        f"operators by their own device time (ms): {busy['ops']}")
+    log(f"9a model FLOPs a step (estimate): {fl['total'] / 1e12:.2f} "
+        f"TFLOP (6 N D {fl['dense'] / 1e12:.2f}, attention "
+        f"{fl['attention'] / 1e12:.2f}, remat forward "
+        f"{fl['remat'] / 1e12:.2f}); {rate / 1e12:.1f} TFLOP/s = "
+        f"{rate / PEAK_BF16_FLOPS:.3f} of the {PEAK_BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s bf16 dense peak (bound {fl['total'] / PEAK_BF16_FLOPS * 1e3:.1f} "
+        f"ms) on {smi_line()}")
+    parts = train_breakdown(torch, model, state, batches[traced], oc)
+    log(f"9a the step in parts (CUDA events): forward + loss without "
+        f"autograd {parts['forward_ms']:.2f} ms, forward + backward "
+        f"{parts['forward_backward_ms']:.2f} ms, AdamW with the clip "
+        f"{parts['adamw_ms']:.2f} ms; the cross entropy alone (forward + "
+        f"backward over [{TRAIN_BATCH}, {TRAIN_SEQ}, {cfg.vocab}] bf16 "
+        f"logits) {parts['cross_entropy_ms']:.2f} ms; the traced forward: "
+        f"{fmt_ms(parts['forward_device_ms'], 2)} of device time in "
+        f"{parts['forward_kernels']} kernels, top operators (ms) "
+        f"{parts['forward_ops']}")
+    # accum 2 against accum 1: one batch, the same state (a copy)
+    twin = {"params": tree_map(torch.clone, state["params"]),
+            "opt": tree_map(torch.clone, state["opt"])}
+    b = to_device(pipe.batch(traced + 1), dev)
+    _, m1 = step(state, b)
+    t0 = time.perf_counter()
+    _, m2 = make_train_step(model, oc, 2)(twin, b)
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    accum_s = time.perf_counter() - t0
+    del twin, m2
+    rel = abs(l2 - l1) / abs(l1)
+    log(f"9a accum 2 vs 1 on one batch: {l2:.5f} vs {l1:.5f} (rel "
+        f"{rel:.2e}; the accum-2 step {accum_s * 1e3:.0f} ms host clock)")
+    check(rel <= TRAIN_ACCUM_RTOL, f"9a: accum 2 loss {l2} vs accum 1 {l1}")
+    res = dict(step_ms=mean_ms, step_ms_min=min(step_ms),
+               step_ms_max=max(step_ms), host_ms=host_ms, tokens_per_s=tok_s,
+               peak_gib=peak, device_ms=busy["device_ms"],
+               kernels=busy["kernels"], idle_share=idle,
+               tflops=rate / 1e12, peak_share=rate / PEAK_BF16_FLOPS,
+               losses=losses, accum_rel=rel, **parts)
+    del state, batches, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["families"] = train_families(torch, dev, seed)
+    res["resume"] = train_resume(torch, dev)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2928,8 +3292,8 @@ def main() -> int:
         log(f"flash_decode at {mm['shape']}: kernel {mm['ms']:.4f} ms, "
             f"library {mm['library_ms']:.4f} ms (events around back-to-"
             f"back calls), twin {mm['plain_ms']:.4f} ms; device time kernel "
-            f"{mm['device_ms']:.4f} ms, library "
-            f"{mm['library_device_ms']:.4f} ms; bound {mm['bound_ms']:.4f} "
+            f"{fmt_ms(mm['device_ms'])}, library "
+            f"{fmt_ms(mm['library_device_ms'])}; bound {mm['bound_ms']:.4f} "
             f"ms ({mm['bound_by']})")
     g = keep["generation"]
     log(f"generation: prefill {g['prefill_ms_mean']:.2f} ms per request, "
@@ -2956,8 +3320,8 @@ def main() -> int:
             log(f"flash_decode {name} at {mm['shape']}: kernel "
                 f"{mm['ms']:.4f} ms, library {mm['library_ms']:.4f} ms, twin "
                 f"{mm['plain_ms']:.4f} ms; device time kernel "
-                f"{mm['device_ms']:.4f} ms, library "
-                f"{mm['library_device_ms']:.4f} ms; bound "
+                f"{fmt_ms(mm['device_ms'])}, library "
+                f"{fmt_ms(mm['library_device_ms'])}; bound "
                 f"{mm['bound_ms']:.4f} ms ({mm['bound_by']})")
 
     # ---- the serving tier, after the generation side's tensors go ------
@@ -2971,6 +3335,23 @@ def main() -> int:
     with Phase("8 measure (B1 grouped on the recorded flush)", torch):
         meas["filtered_topk_grouped"] = measure_grouped(torch, keep, errs)
     sv = keep["serving"]
+
+    # ---- the training path, after the serving tier's tensors go --------
+    keep.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mods = _kernel_mods(generation=True)
+    for mod in mods.values():
+        mod.reset_launch_count()
+    with Phase("9 training", torch):
+        train = main_training(torch, dev, SEED)
+    log(f"phase 9 launches of B1-B5 (the training path reaches no hand "
+        f"kernel): { {n: m.launch_count() for n, m in mods.items()} }; "
+        f"gemma3-1b {train['step_ms']:.2f} ms a step, "
+        f"{train['tokens_per_s']:,.0f} tokens/s, peak "
+        f"{train['peak_gib']:.2f} GiB, idle "
+        f"{fmt_share(train['idle_share'])}, "
+        f"{train['peak_share']:.3f} of the bf16 peak (estimate)")
     sources = {"filtered_topk": ("src/repro_torch/csrc/filtered_topk.cu",
                                  "src/repro/kernels/filtered_topk.py:131"),
                "pairwise_dist": ("src/repro_torch/csrc/distance.cu",

@@ -25,7 +25,9 @@ from .common import ArchConfig, Params, Spec, map_specs
 from .layers import (_attend, _project_qkv, attention, attention_decode,
                      attention_specs, embed, embed_specs, mlp, mlp_specs,
                      rms_norm, unembed)
-from .transformer import _layer, _tokens, unported
+from .losses import cross_entropy
+from .remat import remat
+from .transformer import _layers, _tokens
 
 
 def _stack(n: int, specs: Params) -> Params:
@@ -78,13 +80,17 @@ class EncDecLM:
         dev = params["final_norm"].device
         x = torch.as_tensor(frames, device=dev).to(cfg.compute_dtype)
         positions = torch.arange(x.shape[1], device=dev)[None, :]
-        for i in range(cfg.n_enc_layers):
-            p = _layer(params["enc_layers"], i)
-            h = rms_norm(x, p["ln1"], cfg.norm_eps)
-            x = x + attention(h, p["attn"], cfg, positions, causal=False)
-            h = rms_norm(x, p["ln2"], cfg.norm_eps)
-            x = x + mlp(h, p["mlp"])
+        body = remat(self._enc_block, "full" if cfg.remat else "none")
+        for p in _layers(params["enc_layers"]):
+            x = body(x, p, positions)
         return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+    def _enc_block(self, x, p: Params, positions):
+        cfg = self.cfg
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        x = x + attention(h, p["attn"], cfg, positions, causal=False)
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + mlp(h, p["mlp"])
 
     def _cross_kv(self, enc_out, p: Params):
         """The cross K/V of one decoder layer: [b, nf, n_kv, hd] each."""
@@ -96,10 +102,26 @@ class EncDecLM:
                                                        cfg.hd))
 
     # -- decoder forward -------------------------------------------------------
+    def _dec_block(self, x, p: Params, enc_out, positions, enc_pos):
+        """One decoder layer: ``(x, k, v, xk, xv)``, its self- and
+        cross-attention K/V beside the output."""
+        cfg = self.cfg
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = _project_qkv(h, p["self_attn"], cfg, positions)
+        x = x + _attend(q, k, v, positions, positions, p["self_attn"]["wo"],
+                        cfg)
+        h = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        xk, xv = self._cross_kv(enc_out, p["cross_attn"])
+        x = x + attention(h, p["cross_attn"], cfg, positions, causal=False,
+                          kv=(xk, xv), kv_positions=enc_pos)
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + mlp(h, p["mlp"]), k, v, xk, xv
+
     def _decode_all(self, params: Params, tokens, enc_out, cache=None):
         """Decoder over the whole ``tokens``: final-norm hidden states;
         with ``cache``, the self- and cross-attention K/V are written
-        into it."""
+        into it.  Under autograd each encoder and decoder layer is
+        rematerialised when ``cfg.remat`` is set, as in the reference."""
         cfg = self.cfg
         dev = params["final_norm"].device
         x = embed(_tokens(tokens, dev), params["embed"])
@@ -109,24 +131,14 @@ class EncDecLM:
                              f"cache of {cache['k'].shape[3]}")
         positions = torch.arange(s, device=dev)[None, :]
         enc_pos = torch.arange(enc_out.shape[1], device=dev)[None, :]
-        for i in range(cfg.n_layers):
-            p = _layer(params["dec_layers"], i)
-            h = rms_norm(x, p["ln1"], cfg.norm_eps)
-            q, k, v = _project_qkv(h, p["self_attn"], cfg, positions)
-            x = x + _attend(q, k, v, positions, positions,
-                            p["self_attn"]["wo"], cfg)
-            h = rms_norm(x, p["ln_x"], cfg.norm_eps)
-            xk, xv = self._cross_kv(enc_out, p["cross_attn"])
-            x = x + attention(h, p["cross_attn"], cfg, positions,
-                              causal=False, kv=(xk, xv),
-                              kv_positions=enc_pos)
+        body = remat(self._dec_block, "full" if cfg.remat else "none")
+        for i, p in enumerate(_layers(params["dec_layers"])):
+            x, k, v, xk, xv = body(x, p, enc_out, positions, enc_pos)
             if cache is not None:
                 cache["k"][i, :, :, :s] = k.transpose(1, 2)
                 cache["v"][i, :, :, :s] = v.transpose(1, 2)
                 cache["xk"][i].copy_(xk.transpose(1, 2))
                 cache["xv"][i].copy_(xv.transpose(1, 2))
-            h = rms_norm(x, p["ln2"], cfg.norm_eps)
-            x = x + mlp(h, p["mlp"])
         return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
     def logits(self, params: Params, tokens, frames=None):
@@ -134,8 +146,10 @@ class EncDecLM:
         return unembed(h, params["embed"]), torch.zeros(
             (), dtype=torch.float32, device=h.device)
 
-    def loss(self, params: Params, batch):
-        raise unported("the training loss", "13")
+    def loss(self, params: Params, batch) -> torch.Tensor:
+        """batch: tokens, labels [b, s] and frames [b, n_frames, d]."""
+        logits, _ = self.logits(params, batch["tokens"], batch["frames"])
+        return cross_entropy(logits, batch["labels"])
 
     # -- serving ----------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device=None) -> Params:
@@ -172,8 +186,7 @@ class EncDecLM:
                                device=dev)
         g = cfg.n_heads // cfg.n_kv
         x = embed(_tokens(token, dev), params["embed"])
-        for i in range(cfg.n_layers):
-            p = _layer(params["dec_layers"], i)
+        for i, p in enumerate(_layers(params["dec_layers"])):
             h = rms_norm(x, p["ln1"], cfg.norm_eps)
             x = x + attention_decode(h, p["self_attn"], cfg, cache["k"][i],
                                      cache["v"][i], pos, lengths)

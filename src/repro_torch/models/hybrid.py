@@ -22,8 +22,10 @@ from .common import ArchConfig, Params, Spec, map_specs
 from .layers import (_attend, _project_qkv, attention_decode,
                      attention_specs, embed, embed_specs, mlp, mlp_specs,
                      rms_norm, unembed)
+from .losses import cross_entropy
+from .remat import remat
 from .ssm import mamba2_decode, mamba2_scan, mamba2_specs
-from .transformer import _layer, _tokens, unported
+from .transformer import _layers, _tokens
 
 
 class HybridLM:
@@ -63,9 +65,17 @@ class HybridLM:
         return self.cfg.ssm_chunk or 128
 
     # -- forward ----------------------------------------------------------------
+    def _ssm_block(self, x, p: Params, chunk: int):
+        """One Mamba-2 layer: ``(x + mamba2(norm(x)), conv, ssm)``."""
+        h = rms_norm(x, p["ln"], self.cfg.norm_eps)
+        y, conv, ssm = mamba2_scan(h, p["ssm"], self.cfg, chunk)
+        return x + y, conv, ssm
+
     def _forward(self, params: Params, tokens, cache=None):
         """Final-norm hidden states; with ``cache``, every layer's final
-        states and the shared block's K/V are written into it."""
+        states and the shared block's K/V are written into it.  Under
+        autograd each Mamba-2 layer (not the shared block) is
+        rematerialised when ``cfg.remat`` is set, as in the reference."""
         cfg = self.cfg
         x = embed(_tokens(tokens, params["final_norm"].device),
                   params["embed"])
@@ -76,13 +86,10 @@ class HybridLM:
         positions = torch.arange(s, device=x.device)[None, :]
         chunk = self._chunk(s)
         sp = params["shared"]
-        for g in range(self.n_groups):
-            pg = _layer(params["ssm_layers"], g)
-            for j in range(cfg.attn_every):
-                p = _layer(pg, j)
-                h = rms_norm(x, p["ln"], cfg.norm_eps)
-                y, conv, ssm = mamba2_scan(h, p["ssm"], cfg, chunk)
-                x = x + y
+        body = remat(self._ssm_block, "full" if cfg.remat else "none")
+        for g, pg in enumerate(_layers(params["ssm_layers"])):
+            for j, p in enumerate(_layers(pg)):
+                x, conv, ssm = body(x, p, chunk)
                 if cache is not None:
                     cache["conv"][g * cfg.attn_every + j].copy_(conv)
                     cache["ssm"][g * cfg.attn_every + j].copy_(ssm)
@@ -102,8 +109,9 @@ class HybridLM:
         return unembed(h, params["embed"]), torch.zeros(
             (), dtype=torch.float32, device=h.device)
 
-    def loss(self, params: Params, batch):
-        raise unported("the training loss", "13")
+    def loss(self, params: Params, batch) -> torch.Tensor:
+        logits, _ = self.logits(params, batch["tokens"])
+        return cross_entropy(logits, batch["labels"])
 
     # -- serving ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device=None) -> Params:
@@ -139,10 +147,8 @@ class HybridLM:
         lengths = pos.to(torch.int32).repeat_interleave(cfg.n_kv)
         x = embed(_tokens(token, dev), params["embed"])
         sp = params["shared"]
-        for g in range(self.n_groups):
-            pg = _layer(params["ssm_layers"], g)
-            for j in range(cfg.attn_every):
-                p = _layer(pg, j)
+        for g, pg in enumerate(_layers(params["ssm_layers"])):
+            for j, p in enumerate(_layers(pg)):
                 li = g * cfg.attn_every + j
                 h = rms_norm(x, p["ln"], cfg.norm_eps)
                 y, conv, ssm = mamba2_decode(h, p["ssm"], cfg,

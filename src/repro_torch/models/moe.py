@@ -111,5 +111,5 @@ def moe_local(x: torch.Tensor, p: Params, cfg: ArchConfig
     """The reference's block-local dispatch falls back to :func:`moe`
     without a data-parallel mesh (``repro.models.moe.moe_local``); on one
     card that is the call.  The block-local form needs the training
-    slice's mesh utilities (ROADMAP Queue A item 13)."""
+    slice's mesh utilities (ROADMAP Queue A item 13d)."""
     return moe(x, p, cfg)

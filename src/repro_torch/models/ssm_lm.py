@@ -16,8 +16,10 @@ import torch
 from ..device import resolve_device
 from .common import ArchConfig, Params, Spec, map_specs
 from .layers import embed, embed_specs, rms_norm, unembed
+from .losses import cross_entropy
+from .remat import remat
 from .ssm import mamba1_decode, mamba1_scan, mamba1_specs
-from .transformer import _layer, _tokens, unported
+from .transformer import _layers, _tokens
 
 
 class SSMLM:
@@ -45,18 +47,24 @@ class SSMLM:
             return seq_len
         return self.cfg.ssm_chunk or 64
 
+    def _block(self, x, p: Params, chunk: int):
+        """One layer: ``(x + mamba1(norm(x)), conv_state, ssm_state)``."""
+        h = rms_norm(x, p["ln"], self.cfg.norm_eps)
+        y, conv, ssm = mamba1_scan(h, p["ssm"], self.cfg, chunk)
+        return x + y, conv, ssm
+
     def _forward(self, params: Params, tokens, cache=None):
         """Final-norm hidden states; with ``cache``, each layer's final
-        states are written into it."""
+        states are written into it.  Under autograd each layer is
+        rematerialised when ``cfg.remat`` is set (the reference ignores
+        ``remat_policy`` here)."""
         cfg = self.cfg
         x = embed(_tokens(tokens, params["final_norm"].device),
                   params["embed"])
         chunk = self._chunk(x.shape[1])
-        for i in range(cfg.n_layers):
-            p = _layer(params["layers"], i)
-            h = rms_norm(x, p["ln"], cfg.norm_eps)
-            y, conv, ssm = mamba1_scan(h, p["ssm"], cfg, chunk)
-            x = x + y
+        body = remat(self._block, "full" if cfg.remat else "none")
+        for i, p in enumerate(_layers(params["layers"])):
+            x, conv, ssm = body(x, p, chunk)
             if cache is not None:
                 cache["conv"][i].copy_(conv)
                 cache["ssm"][i].copy_(ssm)
@@ -67,8 +75,9 @@ class SSMLM:
         return unembed(h, params["embed"]), torch.zeros(
             (), dtype=torch.float32, device=h.device)
 
-    def loss(self, params: Params, batch):
-        raise unported("the training loss", "13")
+    def loss(self, params: Params, batch) -> torch.Tensor:
+        logits, _ = self.logits(params, batch["tokens"])
+        return cross_entropy(logits, batch["labels"])
 
     # -- serving --------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device=None) -> Params:
@@ -99,8 +108,7 @@ class SSMLM:
         cfg = self.cfg
         x = embed(_tokens(token, params["final_norm"].device),
                   params["embed"])
-        for i in range(cfg.n_layers):
-            p = _layer(params["layers"], i)
+        for i, p in enumerate(_layers(params["layers"])):
             h = rms_norm(x, p["ln"], cfg.norm_eps)
             y, conv, ssm = mamba1_decode(h, p["ssm"], cfg, cache["conv"][i],
                                          cache["ssm"][i])

@@ -20,8 +20,9 @@ row B5 reads.  ``prefill`` and ``decode_step`` write the cache they are
 given in place and return it.  A windowed layer keeps the full-length
 cache and B5 reads only the window of it.
 
-The training loss is not ported yet; it raises ``NotImplementedError``
-naming its ROADMAP item.
+``loss`` is the training loss (mean CE, plus ``0.01 x`` the MoE
+auxiliary loss); while autograd records it, each layer body is
+rematerialised by ``cfg.remat_policy`` (``remat.py``).
 """
 from __future__ import annotations
 
@@ -35,13 +36,9 @@ from .common import ArchConfig, Params, Spec, map_specs
 from .layers import (_attend, _project_qkv, attention, attention_decode,
                      attention_specs, embed, embed_specs, mlp, mlp_specs,
                      rms_norm, unembed)
+from .losses import cross_entropy
 from .moe import moe, moe_specs
-
-
-def unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue A item "
-        f"{item})")
+from .remat import remat
 
 
 def window_pattern(cfg: ArchConfig) -> np.ndarray:
@@ -55,10 +52,16 @@ def window_pattern(cfg: ArchConfig) -> np.ndarray:
     return w
 
 
-def _layer(params: Params, i: int) -> Params:
-    """Views of layer ``i`` of the stacked per-layer parameters."""
-    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+def _layers(params: Params) -> list:
+    """Per-layer views of the stacked ``[L, ...]`` parameters, each leaf
+    split once by ``torch.unbind``: its gradient is then one stack of the
+    layers' gradients (indexing layer ``i`` would give each layer a
+    zero-filled gradient of the whole stack, added into the leaf's, L
+    times over)."""
+    cols = {k: (_layers(v) if isinstance(v, dict) else torch.unbind(v, 0))
             for k, v in params.items()}
+    n = len(next(iter(cols.values())))
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
 def _tokens(tokens, device: torch.device) -> torch.Tensor:
@@ -123,10 +126,10 @@ class DecoderLM:
         """Final-norm hidden states and the summed MoE auxiliary loss
         (zero for a dense model)."""
         cfg = self.cfg
+        body = remat(self._block, cfg.remat_policy if cfg.remat else "none")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(cfg.n_layers):
-            x, a = self._block(x, _layer(params["layers"], i),
-                               self.windows[i], positions)
+        for i, p in enumerate(_layers(params["layers"])):
+            x, a = body(x, p, self.windows[i], positions)
             aux = aux + a
         return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
@@ -149,8 +152,17 @@ class DecoderLM:
         h, aux = self.hidden_states(params, x, positions)
         return unembed(h, params["embed"]), aux
 
-    def loss(self, params: Params, batch):
-        raise unported("the training loss", "13")
+    def loss(self, params: Params, batch) -> torch.Tensor:
+        """batch: tokens [b, s], labels [b, s] (-1 = ignore), optional
+        patches [b, p, d] (their positions carry label -1)."""
+        logits, aux = self.logits(params, batch["tokens"],
+                                  batch.get("patches"))
+        labels = torch.as_tensor(batch["labels"], device=logits.device)
+        if self.cfg.n_patches and "patches" in batch:
+            pad = torch.full(batch["patches"].shape[:2], -1,
+                             dtype=labels.dtype, device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
+        return cross_entropy(logits, labels) + 0.01 * aux
 
     # -- serving --------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device=None) -> Params:
@@ -174,8 +186,7 @@ class DecoderLM:
             raise ValueError(f"a prompt of {s} positions does not fit a "
                              f"cache of {cache['k'].shape[3]}")
         positions = torch.arange(s, device=x.device)[None, :]
-        for i in range(cfg.n_layers):
-            p = _layer(params["layers"], i)
+        for i, p in enumerate(_layers(params["layers"])):
             h = rms_norm(x, p["ln1"], cfg.norm_eps)
             q, k, v = _project_qkv(h, p["attn"], cfg, positions)
             x = x + _attend(q, k, v, positions, positions, p["attn"]["wo"],
@@ -197,8 +208,7 @@ class DecoderLM:
         pos = torch.as_tensor(pos, device=dev).long()
         lengths = pos.to(torch.int32).repeat_interleave(cfg.n_kv)
         x = embed(_tokens(token, dev), params["embed"])
-        for i in range(cfg.n_layers):
-            p = _layer(params["layers"], i)
+        for i, p in enumerate(_layers(params["layers"])):
             h = rms_norm(x, p["ln1"], cfg.norm_eps)
             x = x + attention_decode(h, p["attn"], cfg, cache["k"][i],
                                      cache["v"][i], pos, lengths,

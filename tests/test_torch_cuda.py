@@ -917,3 +917,110 @@ def test_deadline_path_equals_bulk_on_card(card, quantize):
         r = m.query(q, f, k=10, deadline_ms=60_000.0)
         assert not r.degraded
         assert np.array_equal(g0, r[0]) and np.array_equal(d0, r[1])
+
+
+# ---------------------------------------------------------------------------
+# the training path on the card
+# ---------------------------------------------------------------------------
+TRAIN_FAMILIES = ("codeqwen1.5-7b", "gemma3-1b", "qwen2-moe-a2.7b",
+                  "internvl2-2b", "falcon-mamba-7b", "zamba2-2.7b",
+                  "whisper-medium")
+
+
+def _to(tree, dev):
+    """A copy of ``tree`` on ``dev`` (train steps update in place)."""
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev, copy=True)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", TRAIN_FAMILIES)
+def test_train_step_on_card_matches_cpu(card, arch):
+    """The loss and gradients of each family's fp32 smoke model (remat
+    on) on the card against the same on CPU tensors: the loss within 1e-5
+    relative, each gradient leaf within 1e-4 x its largest magnitude (the
+    CPU parity tests' tolerances); then one train step on each device
+    reports that loss (within 1e-6: the MoE's ``index_add_`` adds with
+    atomics on the card) and leaves finite parameters."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_params
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 loss_and_grads,
+                                                 make_train_step)
+    from repro_torch.training.tree import leaves
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
+                              remat=True)
+    model = build_model(cfg)
+    cpu_p = init_params(model.param_specs(), seed=0, device="cpu")
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab, size=(4, 32)),
+             "labels": rng.integers(-1, cfg.vocab, size=(4, 32))}
+    if cfg.n_enc_layers:
+        batch["frames"] = rng.normal(size=(4, cfg.n_frames, cfg.d_model)
+                                     ).astype(np.float32)
+    if cfg.n_patches:
+        batch["patches"] = rng.normal(size=(4, cfg.n_patches, cfg.d_model)
+                                      ).astype(np.float32)
+    out = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("cuda", card)):
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        p = _to(cpu_p, dev)
+        loss, grads = loss_and_grads(model, p, b)
+        oc = OptConfig(lr=1e-3, warmup_steps=0, schedule="const")
+        state, m = make_train_step(model, oc)(init_train_state(p), b)
+        assert float(m["loss"]) == pytest.approx(float(loss), rel=1e-6)
+        assert all(bool(torch.isfinite(q).all())
+                   for q in leaves(state["params"]))
+        out[name] = (loss.cpu(), [g.cpu() for g in leaves(grads)])
+    (l0, g0), (l1, g1) = out["cpu"], out["cuda"]
+    assert abs(float(l1) - float(l0)) <= 1e-5 * abs(float(l0))
+    for a, b in zip(g0, g1):
+        assert float((a - b).abs().max()) <= 1e-4 * float(a.abs().max())
+
+
+def test_adamw_fp32_update_on_card_matches_cpu(card):
+    """Three AdamW steps (clip on) of an fp32 tree on the card against the
+    CPU: parameters, moments, the learning rate and the gradient norm
+    within fp32 rounding (1e-6 relative)."""
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.tree import leaves
+    gen = torch.Generator().manual_seed(11)
+
+    def tree():
+        return {"a": torch.randn(300, 70, generator=gen),
+                "b": {"c": torch.randn(4097, generator=gen) * 3}}
+
+    params = {"cpu": tree()}
+    params["cuda"] = _to(params["cpu"], card)
+    states = {k: opt.init_opt_state(v) for k, v in params.items()}
+    cfg = opt.OptConfig(lr=1e-2, warmup_steps=2, total_steps=10)
+    for _ in range(3):
+        g = tree()
+        got = {}
+        for k, dev in (("cpu", "cpu"), ("cuda", card)):
+            _, states[k], got[k] = opt.adamw_update(params[k], _to(g, dev),
+                                                    states[k], cfg)
+        for key in ("lr", "grad_norm"):
+            assert float(got["cuda"][key]) == pytest.approx(
+                float(got["cpu"][key]), rel=1e-6)
+    for a, b in zip(leaves(params["cpu"]) + leaves(states["cpu"]),
+                    leaves(params["cuda"]) + leaves(states["cuda"])):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-6,
+                                   atol=1e-8)
+
+
+def test_checkpoint_restores_onto_the_card(card, tmp_path):
+    """A CPU-written state (bf16 and fp32 leaves) restored onto a card
+    template lands there bit for bit."""
+    from repro_torch.training.checkpoint import CheckpointManager
+    gen = torch.Generator().manual_seed(12)
+    st = {"w": torch.randn(64, 32, generator=gen).bfloat16(),
+          "m": torch.randn(64, 32, generator=gen),
+          "step": torch.tensor(9, dtype=torch.int32)}
+    cm = CheckpointManager(str(tmp_path))
+    cm.save(9, st)
+    restored, _ = cm.restore(_to(st, card))
+    for k, v in st.items():
+        assert restored[k].device == card and restored[k].dtype == v.dtype
+        assert torch.equal(restored[k].cpu(), v)

@@ -223,12 +223,6 @@ def test_params_from_jax_rejects_a_wrong_shape():
         params_from_jax(npp, cfg, device="cpu")
 
 
-def test_loss_raises_naming_the_training_item():
-    cfg = get_config("codeqwen1.5-7b", smoke=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        build_model(cfg).loss({}, {})
-
-
 def test_model_entry_points_default_to_the_card():
     """Without a card the default device raises instead of falling back
     to the CPU."""
