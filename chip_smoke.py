@@ -44,7 +44,13 @@ stream at 4 x 1024 tokens): the loss must fall, accumulation over two
 microbatches must give the one-batch loss, and the step is timed, traced
 and split into its parts; one train step of each family's smoke config
 in fp32 is held to the same step on the CPU, and the training launcher
-checkpoints, resumes and must consume the same batches.
+checkpoints, resumes and must consume the same batches.  Phase 10 holds
+the mesh side: int8 gradient compression (``compressed_psum``) over one
+step's gradients on a one-rank NCCL group, bit for bit against the CPU;
+a DTensor train step on a 1 x 1 mesh, bit for bit against the plain step;
+and the dry run, whose peak-memory estimate of phase 9's cell is printed
+beside phase 9's measured peak, with one production record (256 fake
+ranks) that a subprocess computes on the host from the start.
 
 The last three lines of standard output are the card's name and power
 limit (from ``nvidia-smi``), a JSON object describing every kernel, and
@@ -69,9 +75,10 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (dense): fp32 outside the tensor cores, HBM3.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
+# H100 SXM published peaks (dense): fp32 outside the tensor cores, bf16 on
+# the tensor cores, HBM3.  One source, ``repro_torch.launch.mesh.HW``:
+# ``load_peaks`` sets these once the port is importable.
+PEAK_FP32_FLOPS = PEAK_BF16_FLOPS = PEAK_BYTES = None
 
 # Main-path sizes.  D is the embedding width and is never cut; a cut of
 # the n's is made here and listed in PERF.md.
@@ -178,7 +185,27 @@ RESUME_STEPS, RESUME_EVERY = 12, 4
 # restored is equal bit for bit, but the card's atomics (embedding and
 # index_add_ backward) need not add in the same order twice.
 RESUME_LOSS_RTOL = 1e-3
-PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16
+# Phase 10 (mesh and compression): 10a compresses one TRAIN_ARCH step's
+# gradients (phase 9's shape) over a one-rank NCCL group, COMPRESS_ITERS
+# timed calls; 10b trains MESH_ARCHS' smoke configs in fp32 as DTensors on
+# a 1 x 1 ("data", "model") mesh under each of MESH_VARIANTS (the dry run's
+# perf variants) against the plain step; 10c dry-runs phase 9's own cell
+# on one fake rank and prints the production record DRYRUN_CELL, which a
+# subprocess computes on 256 fake ranks while the earlier phases run.
+COMPRESS_ITERS = 5
+MESH_ARCHS = ("gemma3-1b", "qwen2-moe-a2.7b")
+MESH_VARIANTS = ("baseline", "sp", "localdisp")
+DRYRUN_CELL = ("gemma3-1b", "train_4k", "pod1")
+DRYRUN_WAIT_S = 900.0
+
+
+def load_peaks() -> None:
+    """The H100 constants of ``repro_torch.launch.mesh.HW``, as this
+    script's module constants."""
+    from repro_torch.launch.mesh import HW
+    global PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES
+    PEAK_FP32_FLOPS, PEAK_BF16_FLOPS = HW.PEAK_FP32_FLOPS, HW.PEAK_BF16_FLOPS
+    PEAK_BYTES = HW.HBM_BW
 
 
 def log(msg: str) -> None:
@@ -3154,6 +3181,256 @@ def main_training(torch, dev, seed: int) -> dict:
     return res
 
 
+def start_dryrun() -> tuple:
+    """Start the production dry run of DRYRUN_CELL in a subprocess (fake
+    tensors on the host, no card: ``CUDA_VISIBLE_DEVICES`` is empty), its
+    log in a temporary file; returns ``(process, log path, record path)``."""
+    import tempfile
+    from repro_torch.launch.dryrun import cell_path
+    arch, shape, mesh = DRYRUN_CELL
+    path = cell_path(arch, shape, mesh)
+    if os.path.exists(path):
+        os.remove(path)
+    fd, log_path = tempfile.mkstemp(prefix="dryrun-", suffix=".log")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(HERE, "src"))
+    with os.fdopen(fd, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh], cwd=HERE, env=env,
+            stdout=out, stderr=subprocess.STDOUT)
+    return proc, log_path, path
+
+
+def mesh_compression(torch, dev, seed: int) -> dict:
+    """10a: one TRAIN_ARCH step's gradients at phase 9's shape, compressed
+    and all-reduced (``compressed_psum``) over the one-rank NCCL group,
+    twice (the second with the first's residuals as errors); q, scale and
+    residual of every leaf, the mean and the new errors held bit for bit
+    to the same function on the CPU over a gloo group; then timed."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import build_model, init_params
+    from repro_torch.training.compression import (compress_residual,
+                                                  compressed_psum,
+                                                  init_error_state)
+    from repro_torch.training.train_step import loss_and_grads
+    from repro_torch.training.tree import leaves, tree_map
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    params = init_params(model.param_specs(), seed=seed, device=dev)
+    pipe = SyntheticTokenPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=seed))
+    _, grads = loss_and_grads(model, params, to_device(pipe.batch(0), dev))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_par = sum(g.numel() for g in leaves(grads))
+    g_dt = {str(g.dtype) for g in leaves(grads)}
+
+    def bits(t):
+        t = t.cpu()
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def same(a, b) -> bool:
+        return all(torch.equal(bits(x), bits(y))
+                   for x, y in zip(leaves(a), leaves(b)))
+
+    cpu_g = tree_map(lambda t: t.cpu(), grads)
+    n_q = 0
+    for g, c in zip(leaves(grads), leaves(cpu_g)):
+        got = compress_residual(g.float())
+        want = compress_residual(c.float())
+        check(all(torch.equal(bits(x), bits(y)) for x, y in zip(got, want)),
+              "10a: q, scale or residual differ from the CPU's")
+        n_q += 1
+    gloo = dist.new_group(backend="gloo")
+    avg1, err1 = compressed_psum(grads, init_error_state(grads))
+    avg2, err2 = compressed_psum(grads, err1)
+    c_avg1, c_err1 = compressed_psum(cpu_g, init_error_state(cpu_g),
+                                     group=gloo)
+    c_avg2, c_err2 = compressed_psum(cpu_g, c_err1, group=gloo)
+    check(same(avg1, c_avg1) and same(err1, c_err1) and same(avg2, c_avg2)
+          and same(err2, c_err2),
+          "10a: compressed_psum on the card differs from the CPU's")
+    fb = max(float((a.cpu() + e.cpu() - g.float()).abs().max())
+             for a, e, g in zip(leaves(avg1), leaves(err1), leaves(cpu_g)))
+    del avg1, avg2, err2, c_avg1, c_err1, c_avg2, c_err2, cpu_g
+    gc.collect()
+    ms = cuda_ms(torch, lambda: compressed_psum(grads, err1), COMPRESS_ITERS)
+    # read the gradient and the error, write q, the residual and the mean
+    nbytes = sum(g.numel() * (g.element_size() + 4 + 1 + 4 + 4)
+                 for g in leaves(grads))
+    bound = nbytes / PEAK_BYTES * 1e3
+    log(f"10a compressed_psum over {TRAIN_ARCH}'s gradients ({n_par:,} "
+        f"parameters in {len(leaves(grads))} leaves, {sorted(g_dt)}; one "
+        f"NCCL rank): q, scale and residual of {n_q} leaves and two steps' "
+        f"means and errors equal the CPU's bit for bit; mean + error - "
+        f"gradient at most {fb:.3e}; {ms:.3f} ms a call by CUDA events "
+        f"({COMPRESS_ITERS} calls) against a byte bound of {bound:.3f} ms "
+        f"({nbytes / 1e9:.2f} GB at {PEAK_BYTES / 1e12:.2f} TB/s: "
+        f"{bound / ms:.3f} of it) on {smi_line()}")
+    dist.destroy_process_group(gloo)
+    return dict(ms=ms, bound_ms=bound, bytes=nbytes, params=n_par,
+                leaves=len(leaves(grads)))
+
+
+def mesh_dtensor_step(torch, dev, seed: int) -> dict:
+    """10b: MESH_ARCHS' smoke configs in fp32, under each of MESH_VARIANTS,
+    one train step as DTensors placed by the sharding rules (ZeRO-1
+    moments) on a 1 x 1 ("data", "model") mesh of ``dev`` with the mesh
+    hints registered and ``dtensor_fallbacks`` (the attention regroups
+    sharded heads), against the plain step from the same state and
+    batch: loss, parameters and moments equal bit for bit (one rank holds
+    every shard whole)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.hints import use_mesh_hints
+    from repro_torch.distributed.sharding import (batch_shardings,
+                                                  distribute_tree,
+                                                  opt_state_shardings,
+                                                  params_shardings)
+    from repro_torch.launch.dryrun import dtensor_fallbacks
+    from repro_torch.launch.perf import VARIANTS
+    from repro_torch.models import build_model, init_params
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.tree import leaves, tree_map
+    mesh = DeviceMesh(dev.type, [[0]], mesh_dim_names=("data", "model"))
+
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    out = {}
+    for arch in MESH_ARCHS:
+        for variant in MESH_VARIANTS:
+            cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                      dtype="float32", **VARIANTS[variant])
+            model = build_model(cfg)
+            specs = model.param_specs()
+            params = init_params(specs, seed=seed, device=dev)
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in _family_batch(cfg, seed + 91).items()}
+            step = make_train_step(model, OptConfig())
+            clone = lambda t: tree_map(torch.clone, t)  # noqa: E731
+            plain, pm = step({"params": clone(params),
+                              "opt": init_opt_state(params)}, batch)
+            pspec = params_shardings(specs, mesh, cfg)
+            state = {"params": distribute_tree(clone(params), pspec, mesh),
+                     "opt": distribute_tree(init_opt_state(params),
+                                            opt_state_shardings(
+                                                pspec, mesh, specs), mesh)}
+            dbatch = distribute_tree(batch, batch_shardings(mesh, batch),
+                                     mesh)
+            with use_mesh_hints(mesh), implicit_replication(), \
+                    dtensor_fallbacks():
+                dist_state, dm = step(state, dbatch)
+            pairs = list(zip(leaves(plain), leaves(dist_state)))
+            equal = all(torch.equal(a.view(torch.int32),
+                                    local(b).view(torch.int32))
+                        if a.dtype == torch.float32 else torch.equal(
+                            a, local(b)) for a, b in pairs)
+            lp, ld = float(pm["loss"]), float(local(dm["loss"]))
+            log(f"10b {arch} ({variant}): DTensor step loss {ld:.7f}, plain "
+                f"{lp:.7f}; {len(pairs)} state leaves equal bit for bit: "
+                f"{equal}")
+            check(equal and lp == ld, f"10b {arch} ({variant}): the DTensor "
+                  f"step differs from the plain step")
+            out[f"{arch}/{variant}"] = lp
+    return out
+
+
+def mesh_dryrun(torch, train: dict, dry: tuple) -> dict:
+    """10c: phase 9's cell (TRAIN_ARCH, train, TRAIN_BATCH x TRAIN_SEQ)
+    dry-run on one fake rank, its peak estimate beside phase 9's measured
+    peak (``fits_hbm`` must agree with the step having run); then the
+    production record DRYRUN_CELL from the subprocess ``dry``."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import compile_cell, fake_world
+    from repro_torch.launch.mesh import HW
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"10c the card's memory: {total:,} bytes "
+        f"(torch.cuda.get_device_properties(0).total_memory; HW.HBM_BYTES "
+        f"{HW.HBM_BYTES:,.0f}) on {smi_line()}")
+    t0 = time.perf_counter()
+    with fake_world(1):
+        mesh = DeviceMesh("cpu", [[0]], mesh_dim_names=("data", "model"))
+        rec = compile_cell(get_config(TRAIN_ARCH), ShapeSpec(
+            "phase9", "train", TRAIN_SEQ, TRAIN_BATCH), mesh)
+    m = rec["memory"]
+    est = m["peak_per_device_bytes"] / 2**30
+    log(f"10c dry run of phase 9's cell ({TRAIN_ARCH}, train, {TRAIN_BATCH}"
+        f" x {TRAIN_SEQ}, one rank; {time.perf_counter() - t0:.1f} s on the "
+        f"host): peak {est:.2f} GiB (arguments "
+        f"{m['argument_bytes'] / 2**30:.2f}, temporaries "
+        f"{m['temp_bytes'] / 2**30:.2f}, aliased "
+        f"{m['alias_bytes'] / 2**30:.2f}) against phase 9's measured "
+        f"{train['peak_gib']:.2f} GiB (max_memory_allocated): ratio "
+        f"{est / train['peak_gib']:.4f}; fits_hbm {m['fits_hbm']}; "
+        f"{rec['cost']['flops'] / 1e12:.2f} TFLOP counted")
+    check(m["fits_hbm"], "10c: the dry run says phase 9's step does not "
+          "fit, but it ran")
+    proc, log_path, path = dry
+    try:
+        proc.wait(timeout=DRYRUN_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"10c: the {DRYRUN_CELL} dry run did not end in "
+             f"{DRYRUN_WAIT_S:.0f} s")
+    with open(log_path) as f:
+        tail = f.read()[-2000:]
+    os.remove(log_path)
+    check(proc.returncode == 0 and os.path.exists(path),
+          f"10c: the {DRYRUN_CELL} dry run failed: {tail}")
+    with open(path) as f:
+        prod = json.load(f)
+    check(prod["status"] == "ok", f"10c: {DRYRUN_CELL}: {prod.get('error')}")
+    pm, ro = prod["full"]["memory"], prod["roofline"]
+    log(f"10c production record {'/'.join(DRYRUN_CELL)} on "
+        f"{prod['chips']} fake ranks (H100 constants of HW): accum tried "
+        f"{prod['accum']}; peak per device {pm['peak_per_device_bytes'] / 1e9:.2f} GB"
+        f" (arguments {pm['argument_bytes'] / 1e9:.2f}, temporaries "
+        f"{pm['temp_bytes'] / 1e9:.2f}), fits_hbm {pm['fits_hbm']}; "
+        f"collectives {prod['full']['collectives']['total'] / 1e9:.2f} GB in "
+        f"{prod['full']['collectives']['count']} ops; roofline compute "
+        f"{ro['compute_s']:.4f} s, memory {ro['memory_s']:.4f} s, "
+        f"collective {ro['collective_s']:.4f} s: {ro['bottleneck']}-bound, "
+        f"useful ratio {ro['useful_ratio']:.3f}")
+    return dict(peak_est_gib=est, peak_measured_gib=train["peak_gib"],
+                ratio=est / train["peak_gib"], total_memory=total,
+                production=dict(peak_gb=pm["peak_per_device_bytes"] / 1e9,
+                                fits_hbm=pm["fits_hbm"], **ro))
+
+
+def main_mesh(torch, dev, seed: int, train: dict, dry: tuple) -> dict:
+    """Phase 10: 10a and 10b over a one-rank NCCL process group (a
+    ``FileStore`` in a temporary directory: no network), then 10c."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    root = tempfile.mkdtemp(prefix="cubegraph-10-")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(root, "store"), 1), rank=0, world_size=1,
+        device_id=dev)
+    try:
+        res = {"compression": mesh_compression(torch, dev, seed)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["dtensor"] = mesh_dtensor_step(torch, dev, seed)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    res["dryrun"] = mesh_dryrun(torch, train, dry)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3179,6 +3456,7 @@ def main() -> int:
         print(f"chip_smoke: the port's sources are not here ({exc})",
               file=sys.stderr)
         return 2
+    load_peaks()
     t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3216,6 +3494,19 @@ def main() -> int:
         phase_kernels_decode(torch, dev, SEED, errs)
     if args.kernels_only:
         return 0
+    dry = start_dryrun()
+    try:
+        return main_path(torch, dev, dry, errs, t_start)
+    finally:
+        if dry[0].poll() is None:
+            dry[0].kill()
+            dry[0].wait()
+
+
+def main_path(torch, dev, dry: tuple, errs: dict, t_start: float) -> int:
+    """Phases 3-10 and the result lines."""
+    b1 = importlib.import_module("repro_torch.kernels.filtered_topk")
+    b2 = importlib.import_module("repro_torch.kernels.distance")
 
     # ---- the main path: counts are read only around these phases -------
     b1.reset_launch_count()
@@ -3352,6 +3643,19 @@ def main() -> int:
         f"{train['peak_gib']:.2f} GiB, idle "
         f"{fmt_share(train['idle_share'])}, "
         f"{train['peak_share']:.3f} of the bf16 peak (estimate)")
+
+    # ---- mesh utilities, compression and the dry run -------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    for mod in mods.values():
+        mod.reset_launch_count()
+    with Phase("10 mesh and compression", torch):
+        mesh = main_mesh(torch, dev, SEED, train, dry)
+    log(f"phase 10 launches of B1-B5 (no hand kernel on this path): "
+        f"{ {n: m.launch_count() for n, m in mods.items()} }; "
+        f"compressed_psum {mesh['compression']['ms']:.3f} ms (bound "
+        f"{mesh['compression']['bound_ms']:.3f}); dry-run peak / measured "
+        f"{mesh['dryrun']['ratio']:.4f}")
     sources = {"filtered_topk": ("src/repro_torch/csrc/filtered_topk.cu",
                                  "src/repro/kernels/filtered_topk.py:131"),
                "pairwise_dist": ("src/repro_torch/csrc/distance.cu",

@@ -98,6 +98,15 @@ class ArchConfig:
         from .api import build_model
         return count_params(build_model(self).param_specs())
 
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: routed top-k + shared only)."""
+        total = self.n_params()
+        if self.family != "moe":
+            return total
+        per_expert = 3 * self.d_model * self.d_expert
+        inactive = (self.n_experts - self.top_k) * per_expert * self.n_layers
+        return total - inactive
+
 
 # ---------------------------------------------------------------------------
 # Spec-driven params

@@ -5,7 +5,8 @@ Parameters keep the reference's tree, per-layer weights stacked on a
 leading ``[L, ...]`` axis; the layer loop is a Python loop over views of
 that stack, each layer with its attention window from
 :func:`window_pattern` (-1 = global; gemma3's 5 local : 1 global).  MoE
-layers use the sort-based dispatch in ``moe.py``.  Entry points:
+layers use the sort-based dispatch in ``moe.py`` (the block-local one
+when ``cfg.moe_local_dispatch``).  Entry points:
 
   ``logits``      — forward over a whole sequence (scoring)
   ``prefill``     — prompt forward that also fills the KV cache
@@ -32,12 +33,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed.hints import constrain, dp_axes
 from .common import ArchConfig, Params, Spec, map_specs
 from .layers import (_attend, _project_qkv, attention, attention_decode,
                      attention_specs, embed, embed_specs, mlp, mlp_specs,
                      rms_norm, unembed)
 from .losses import cross_entropy
-from .moe import moe, moe_specs
+from .moe import moe, moe_local, moe_specs
 from .remat import remat
 
 
@@ -108,12 +110,17 @@ class DecoderLM:
     def _ffn(self, h, p: Params) -> Tuple[torch.Tensor, torch.Tensor]:
         """The layer's MLP or MoE: ``(y, aux)``."""
         if self.is_moe:
-            return moe(h, p, self.cfg)
+            moe_fn = moe_local if self.cfg.moe_local_dispatch else moe
+            return moe_fn(h, p, self.cfg)
         return mlp(h, p), torch.zeros((), dtype=torch.float32,
                                       device=h.device)
 
     def _block(self, x, p: Params, window: int, positions):
         cfg = self.cfg
+        if cfg.seq_parallel:
+            # Megatron-SP: the residual stream sharded over sequence on
+            # the model axis between blocks (a no-op without a mesh)
+            x = constrain(x, dp_axes(), "model", None)
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         x = x + attention(h, p["attn"], cfg, positions, window)
         h = rms_norm(x, p["ln2"], cfg.norm_eps)

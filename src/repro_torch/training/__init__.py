@@ -1,5 +1,6 @@
-"""The single-card training path: AdamW and its schedules
+"""The training path: AdamW and its schedules
 (``optimizer``), the train step with gradient accumulation
-(``train_step``), atomic checkpoints (``checkpoint``) and the cluster
-fault policies (``fault_tolerance``) — the counterpart of
-``repro.training`` (gradient compression waits for ROADMAP item 13c)."""
+(``train_step``), atomic checkpoints (``checkpoint``), the cluster
+fault policies (``fault_tolerance``) and int8 gradient compression with
+error feedback for the data-parallel all-reduce (``compression``) — the
+counterpart of ``repro.training``."""

@@ -62,8 +62,8 @@ def make_train_step(model, opt_cfg: OptConfig, accum_steps: int = 1):
             loss, grads = loss_and_grads(model, params, batch)
         else:
             ps = leaves(params)
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in ps]
+            # zeros_like keeps a DTensor parameter's placements
+            acc = [torch.zeros_like(p, dtype=torch.float32) for p in ps]
             loss = torch.zeros((), dtype=torch.float32, device=ps[0].device)
             for mb in _microbatches(batch, accum_steps):
                 l, g = loss_and_grads(model, params, mb)

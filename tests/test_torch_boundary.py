@@ -54,7 +54,11 @@ def test_import_loads_no_jax():
             "repro_torch.serving.tenancy, repro_torch.serving.service, "
             "repro_torch.serving.workload, "
             "repro_torch.configs, repro_torch.models, repro_torch.serving, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
+            "repro_torch.launch.perf, repro_torch.training.compression, "
+            "repro_torch.distributed.hints, repro_torch.distributed.sharding, "
+            "repro_torch.distributed.hlo_analysis\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"

@@ -1024,3 +1024,63 @@ def test_checkpoint_restores_onto_the_card(card, tmp_path):
     for k, v in st.items():
         assert restored[k].device == card and restored[k].dtype == v.dtype
         assert torch.equal(restored[k].cpu(), v)
+
+
+COMPRESS_SCRIPT = r"""
+import sys
+import torch
+import torch.distributed as dist
+from repro_torch.training.compression import (compress_residual,
+                                              compressed_psum,
+                                              init_error_state)
+store = sys.argv[1]
+dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                        world_size=1, device_id=torch.device("cuda:0"))
+try:
+    gloo = dist.new_group(backend="gloo")
+    gen = torch.Generator().manual_seed(7)
+    grads = {"w": torch.randn(257, 129, generator=gen) * 3.0,
+             "b": (torch.randn(1000, generator=gen) * 1e-3
+                   ).to(torch.bfloat16),
+             "z": torch.zeros(17)}
+    grads["w"][0, :4] = torch.tensor([127.0, 63.5, -0.5, 2.5])
+    card = {k: v.cuda() for k, v in grads.items()}
+
+    def bits(t):
+        t = t.cpu()
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    for k in grads:
+        for a, b in zip(compress_residual(card[k].float()),
+                        compress_residual(grads[k].float())):
+            assert torch.equal(bits(a), bits(b)), k
+    e_card, e_cpu = init_error_state(card), init_error_state(grads)
+    for _ in range(3):
+        a_card, e_card = compressed_psum(card, e_card)
+        a_cpu, e_cpu = compressed_psum(grads, e_cpu, group=gloo)
+        for k in grads:
+            assert torch.equal(bits(a_card[k]), bits(a_cpu[k])), k
+            assert torch.equal(bits(e_card[k]), bits(e_cpu[k])), k
+    dist.destroy_process_group(gloo)
+finally:
+    dist.destroy_process_group()
+print("COMPRESS OK")
+"""
+
+
+def test_compressed_psum_on_card_matches_cpu(card, tmp_path):
+    """int8 compression with error feedback over a one-rank NCCL group on
+    the card: q, scale and residual of each leaf (fp32, bf16, all-zero,
+    exact halves) and three steps' means and errors bit for bit those of
+    the same function on the CPU over a gloo group.  The process group
+    lives in a subprocess, so this test worker keeps none."""
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(os.path.dirname(__file__), "..", "src")
+    r = subprocess.run([sys.executable, "-c", COMPRESS_SCRIPT,
+                        str(tmp_path / "store")], capture_output=True,
+                       text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "COMPRESS OK" in r.stdout
