@@ -19,7 +19,12 @@ answers, and restored again under a device budget that leaves buckets
 in pinned host memory (cold dispatches, admissions on a side stream).
 Phase 5d drives a persistent, budgeted manager (fp32 and int8) through a
 lifecycle tape under seeded crashes at the fault points and holds every
-recovered answer bit for bit to a fault-free oracle.
+recovered answer bit for bit to a fault-free oracle.  Phase 5e restores
+5c's snapshots on a shard mesh over every visible card (two entries on
+the one card when only one is visible) and holds every read, a grouped
+flush, a budgeted restore and the same ingest / delete / seal ops on both
+bit for bit to the single-card managers; a 1M-vector pack is scanned on
+the mesh and on one card, bit for bit, and both are timed.
 It times each of those kernels beside its twin, its roofline bound and
 one PyTorch library call computing the same function.  Then it frees those phases' tensors and
 drives the generation side at the full width of ``internvl2-2b`` in bf16
@@ -69,8 +74,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -88,6 +95,9 @@ N_SCAN = 1_000_000
 N_INDEX = 100_000       # cut from 1M: level-0 kNN is O(n^2 / 2^m * d)
 N_STREAM = 100_000
 N_SHARDED = 100_000     # points per manager in the sharded streaming phase
+MESH_SEGMENTS = 16      # phase 5e: the 1M scan's data as segments ...
+MESH_SCAN_SHARDS = 4    # ... of this many shards each (one [64, 16384] bucket)
+MESH_OPS_N = 8192       # points each mesh manager ingests in 5e's ops
 EARLY_QUERY_BATCH = 2   # the sharded managers' first query, after 3 batches
 # Baselines (4b) on phase 4's data, queried at BASELINE_EF; not cut while
 # the four builds stay under BASELINE_BUILD_S.  The monolithic graph counts
@@ -1164,18 +1174,20 @@ def measure_sharded(torch, keep: dict, nq: int, errs: dict) -> dict:
     qn = (q * q).sum(-1)[:, None]
     out = {}
     view = managers["int8"]._pack.view()
-    bv = max(view.buckets, key=lambda b: b.gids.numel())
-    rows, cap = bv.gids.shape
-    m = bv.s.shape[2]
+    bv = max(view.buckets, key=lambda b: b.n_rows * b.cap)
+    b_codes, b_s, b_xsq, b_scales = (bv.block(name) for name in
+                                     ("codes", "s", "xsq", "scales"))
+    rows, cap = bv.n_rows, bv.cap
+    m = b_s.shape[2]
     kind, params = ops.encode_filter(f, m, mpad=m)
     p = torch.as_tensor(params, device=dev)
     kpad = 64
-    qs = q[None] * bv.scales[:, None, :]
-    args = (qs, bv.codes, bv.s, bv.xsq, p, kind, kpad, "l2")
+    qs = q[None] * b_scales[:, None, :]
+    args = (qs, b_codes, b_s, b_xsq, p, kind, kpad, "l2")
     kd, ki = quant_topk_call(*args)
     torch.cuda.synchronize()
     td, ti = quant_topk_plain(*args)
-    e = compare_topk(torch, kd, ki, td, ti, qn + bv.xsq.max(),
+    e = compare_topk(torch, kd, ki, td, ti, qn + b_xsq.max(),
                      f"B3 main-path bucket [{rows}, {cap}]")
     errs["quant_topk"] = max(errs["quant_topk"], e)
     log(f"B3 vs twin on the largest int8 bucket [{rows}, {cap}, {d}], "
@@ -1185,7 +1197,7 @@ def measure_sharded(torch, keep: dict, nq: int, errs: dict) -> dict:
                     warmup=1)
     # the same codes with every candidate passing: the kernel computes all
     # tiles, so this is its dense tile rate
-    every = (qs, bv.codes, torch.zeros_like(bv.s), bv.xsq, torch.as_tensor(
+    every = (qs, b_codes, torch.zeros_like(b_s), b_xsq, torch.as_tensor(
         ops.encode_filter(None, m, mpad=m)[1], device=dev), "none", kpad,
         "l2")
     dense_ms = cuda_ms(torch, lambda: quant_topk_call(*every), iters=5)
@@ -1193,10 +1205,10 @@ def measure_sharded(torch, keep: dict, nq: int, errs: dict) -> dict:
     hi = p[1, :m]
 
     def b3_library():
-        deqb = bv.codes.float() * bv.scales[:, None, :]
-        dm = bv.xsq[:, None, :] - 2.0 * torch.matmul(q[None],
+        deqb = b_codes.float() * b_scales[:, None, :]
+        dm = b_xsq[:, None, :] - 2.0 * torch.matmul(q[None],
                                                      deqb.transpose(1, 2))
-        ok = ((bv.s >= lo) & (bv.s <= hi)).all(-1)
+        ok = ((b_s >= lo) & (b_s <= hi)).all(-1)
         return torch.topk(dm.masked_fill_(~ok[:, None, :], float("inf")),
                           kpad, dim=-1, largest=False)
     lib = cuda_ms(torch, b3_library, iters=3, warmup=1)
@@ -1205,11 +1217,11 @@ def measure_sharded(torch, keep: dict, nq: int, errs: dict) -> dict:
     # queries and the lists.  dense_bound_ms counts every position, as the
     # bound did before the kernel skipped tiles.
     npos = rows * cap
-    passing, live, tiles = b3mod.live_tiles(bv.s, p, kind, b3mod.TN)
+    passing, live, tiles = b3mod.live_tiles(b_s, p, kind, b3mod.TN)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     splits = b3mod.launch_config(rows, nq, cap, d, kpad, 0, 0,
                                  sms)["splits"]
-    packed = packed_tiles(bv.s, p, kind, splits)
+    packed = packed_tiles(b_s, p, kind, splits)
     rest = 4.0 * rows * nq * d + 8.0 * rows * nq * kpad
     flops = 2.0 * nq * passing * d
     nbytes = npos * (4 * m + 4) + passing * d + rest
@@ -1449,7 +1461,7 @@ def _locked_pack(mgr):
         return mgr._pack, mgr._pack.view(), mgr._pack.nbytes
 
 
-def main_durability(torch, dev, keep: dict, nq: int) -> dict:
+def main_durability(torch, dev, keep: dict, nq: int, root: str) -> dict:
     """Snapshots, restores and tiering on phase 5b's two managers (fp32 and
     int8): each is snapshotted into a temporary directory, restored on the
     card, and queried with 5b's queries and filters under scan, graph and
@@ -1462,10 +1474,9 @@ def main_durability(torch, dev, keep: dict, nq: int) -> dict:
     counted.  Then one cold dispatch is timed against the same bucket
     resident, with its host-to-device copy, and one side-stream admission.
     Returns the launches of B1 / B3 / B4 in the checked part (the timed
-    part after it is not counted)."""
+    part after it is not counted).  The snapshots stay under ``root``
+    (phase 5e restores them on the shard mesh; the caller removes it)."""
     import dataclasses
-    import shutil
-    import tempfile
     import numpy as np
     from repro_torch.streaming import SegmentManager
     mods = {name: importlib.import_module(f"repro_torch.kernels.{mod}")
@@ -1476,100 +1487,319 @@ def main_durability(torch, dev, keep: dict, nq: int) -> dict:
         mod.reset_launch_count()
     k = 10
     q, filters = keep["q_sharded"], keep["sharded_filters"]
-    root = tempfile.mkdtemp(prefix="cubegraph-5c-")
     timed = []
-    try:
-        for name, mgr in keep["managers"].items():
-            snap = os.path.join(root, name)
-            t0 = time.perf_counter()
-            man = mgr.snapshot_to(snap)
-            dt = time.perf_counter() - t0
-            nbytes = _dir_bytes(snap)
-            log(f"durability[{name}]: snapshot {dt:.2f} s, {nbytes} bytes "
-                f"written ({nbytes / dt / 1e9:.2f} GB/s), "
-                f"{len(man['segments'])} segment artifacts")
-            t0 = time.perf_counter()
-            rest = SegmentManager.restore(snap, device=dev, resume=False)
-            torch.cuda.synchronize()
-            t_restore = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            rest.query(q, filters["interval"], k=k, read_path="scan")
-            torch.cuda.synchronize()
-            log(f"durability[{name}]: restore {t_restore:.2f} s, first "
-                f"query (the pack's cold build) "
-                f"{time.perf_counter() - t0:.2f} s")
-            for fname, f in filters.items():
-                ga, da = mgr.query(q, f, k=k, read_path="scan")
-                gb, db = rest.query(q, f, k=k, read_path="scan")
+    for name, mgr in keep["managers"].items():
+        snap = os.path.join(root, name)
+        t0 = time.perf_counter()
+        man = mgr.snapshot_to(snap)
+        dt = time.perf_counter() - t0
+        nbytes = _dir_bytes(snap)
+        log(f"durability[{name}]: snapshot {dt:.2f} s, {nbytes} bytes "
+            f"written ({nbytes / dt / 1e9:.2f} GB/s), "
+            f"{len(man['segments'])} segment artifacts")
+        t0 = time.perf_counter()
+        rest = SegmentManager.restore(snap, device=dev, resume=False)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rest.query(q, filters["interval"], k=k, read_path="scan")
+        torch.cuda.synchronize()
+        log(f"durability[{name}]: restore {t_restore:.2f} s, first "
+            f"query (the pack's cold build) "
+            f"{time.perf_counter() - t0:.2f} s")
+        for fname, f in filters.items():
+            ga, da = mgr.query(q, f, k=k, read_path="scan")
+            gb, db = rest.query(q, f, k=k, read_path="scan")
+            check(bool(np.array_equal(ga, gb))
+                  and bool(np.array_equal(da, db)),
+                  f"restored[{name}] {fname}/scan: answers differ from "
+                  "the original's delta-kept pack")
+        # the pack is derived state: a traversal follows the graph the
+        # pack staged, and a delta-kept pack keeps the edges of points
+        # deleted after their segment was packed, where a cold build
+        # (a restore's) has only the live rows' edges.  So the graph
+        # and auto legs hold the restored manager to the original
+        # with its pack rebuilt from the same live segments.
+        with mgr._lock:
+            mgr._pack = None
+        for fname, f in filters.items():
+            for rp in ("scan", "graph", "auto"):
+                ga, da = mgr.query(q, f, k=k, read_path=rp)
+                pa = ({c: p.mode for c, p in mgr.last_plan.items()}
+                      if rp != "scan" else None)
+                gb, db = rest.query(q, f, k=k, read_path=rp)
+                pb = ({c: p.mode for c, p in rest.last_plan.items()}
+                      if rp != "scan" else None)
+                check(pa == pb, f"restored[{name}] {fname}/{rp}: plan "
+                      f"{pb} != the original's {pa}")
                 check(bool(np.array_equal(ga, gb))
                       and bool(np.array_equal(da, db)),
-                      f"restored[{name}] {fname}/scan: answers differ from "
-                      "the original's delta-kept pack")
-            # the pack is derived state: a traversal follows the graph the
-            # pack staged, and a delta-kept pack keeps the edges of points
-            # deleted after their segment was packed, where a cold build
-            # (a restore's) has only the live rows' edges.  So the graph
-            # and auto legs hold the restored manager to the original
-            # with its pack rebuilt from the same live segments.
-            with mgr._lock:
-                mgr._pack = None
-            for fname, f in filters.items():
-                for rp in ("scan", "graph", "auto"):
-                    ga, da = mgr.query(q, f, k=k, read_path=rp)
-                    pa = ({c: p.mode for c, p in mgr.last_plan.items()}
-                          if rp != "scan" else None)
-                    gb, db = rest.query(q, f, k=k, read_path=rp)
-                    pb = ({c: p.mode for c, p in rest.last_plan.items()}
-                          if rp != "scan" else None)
-                    check(pa == pb, f"restored[{name}] {fname}/{rp}: plan "
-                          f"{pb} != the original's {pa}")
-                    check(bool(np.array_equal(ga, gb))
-                          and bool(np.array_equal(da, db)),
-                          f"restored[{name}] {fname}/{rp}: answers differ "
-                          "from the original's")
-            log(f"durability[{name}]: restored == original bit for bit on "
-                f"{len(filters)} filters x scan (delta-kept and rebuilt "
-                "pack) / graph / auto (rebuilt pack)")
-            pack, _, full = _locked_pack(rest)
-            largest = max(b.full_nbytes for b in pack.buckets.values())
-            budget = min(full // 3, largest - 1)   # the largest stays cold
-            tier = SegmentManager.restore(
-                snap, cfg=dataclasses.replace(
-                    rest.cfg, device_budget_bytes=budget),
-                device=dev, resume=False)
-            for fname, f in filters.items():
-                ga, da = rest.query(q, f, k=k, read_path="scan")
-                gb, db = tier.query(q, f, k=k, read_path="scan")
-                check(bool(np.array_equal(ga, gb))
-                      and bool(np.array_equal(da, db)),
-                      f"budget[{name}] {fname}: answers differ from "
-                      "all-resident")
-                if tier._prefetch_thread is not None:
-                    tier._prefetch_thread.join(timeout=120)
-                _, _, resident = _locked_pack(tier)
-                check(resident <= budget, f"budget[{name}] {fname}: "
-                      f"{resident} resident bytes > budget {budget}")
-            st = tier.stats()
-            misses = st["obs"]["metrics"]["counters"].get("tier_miss_total",
-                                                          0)
-            check(misses > 0, f"budget[{name}]: no tier miss counted")
-            # no injector is installed: no admission may have been absorbed
-            check("tier_admission" not in st["health"],
-                  f"budget[{name}]: an admission failed "
-                  f"{st['health'].get('tier_admission')}")
-            log(f"durability[{name}]: budget {budget} of {full} pack bytes:"
-                f" scans == all-resident bit for bit; tier {st['tier']}, "
-                f"misses {misses}, buckets {st['pack_buckets']}")
-            timed.append((name, rest, tier))
-        launches = {kn: mod.launch_count() for kn, mod in mods.items()}
-        log(f"durability phase launches: {launches}")
-        for kn, c in launches.items():
-            check(c >= 1, f"kernel {kn} was not launched in phase 5c")
-        for name, rest, tier in timed:
-            measure_cold(torch, dev, name, rest, tier, q, k)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+                      f"restored[{name}] {fname}/{rp}: answers differ "
+                      "from the original's")
+        log(f"durability[{name}]: restored == original bit for bit on "
+            f"{len(filters)} filters x scan (delta-kept and rebuilt "
+            "pack) / graph / auto (rebuilt pack)")
+        pack, _, full = _locked_pack(rest)
+        largest = max(b.full_nbytes for b in pack.buckets.values())
+        budget = min(full // 3, largest - 1)   # the largest stays cold
+        tier = SegmentManager.restore(
+            snap, cfg=dataclasses.replace(
+                rest.cfg, device_budget_bytes=budget),
+            device=dev, resume=False)
+        for fname, f in filters.items():
+            ga, da = rest.query(q, f, k=k, read_path="scan")
+            gb, db = tier.query(q, f, k=k, read_path="scan")
+            check(bool(np.array_equal(ga, gb))
+                  and bool(np.array_equal(da, db)),
+                  f"budget[{name}] {fname}: answers differ from "
+                  "all-resident")
+            if tier._prefetch_thread is not None:
+                tier._prefetch_thread.join(timeout=120)
+            _, _, resident = _locked_pack(tier)
+            check(resident <= budget, f"budget[{name}] {fname}: "
+                  f"{resident} resident bytes > budget {budget}")
+        st = tier.stats()
+        misses = st["obs"]["metrics"]["counters"].get("tier_miss_total",
+                                                      0)
+        check(misses > 0, f"budget[{name}]: no tier miss counted")
+        # no injector is installed: no admission may have been absorbed
+        check("tier_admission" not in st["health"],
+              f"budget[{name}]: an admission failed "
+              f"{st['health'].get('tier_admission')}")
+        log(f"durability[{name}]: budget {budget} of {full} pack bytes:"
+            f" scans == all-resident bit for bit; tier {st['tier']}, "
+            f"misses {misses}, buckets {st['pack_buckets']}")
+        timed.append((name, rest, tier))
+    launches = {kn: mod.launch_count() for kn, mod in mods.items()}
+    log(f"durability phase launches: {launches}")
+    for kn, c in launches.items():
+        check(c >= 1, f"kernel {kn} was not launched in phase 5c")
+    for name, rest, tier in timed:
+        measure_cold(torch, dev, name, rest, tier, q, k)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The shard mesh (5e)
+# ---------------------------------------------------------------------------
+def smoke_mesh(torch, dev):
+    """Phase 5e's mesh: every visible card, home ``dev``; two entries on
+    ``dev`` when it is the only card (placement, the per-card launches and
+    the merge run, but no copy crosses cards).  Returns ``(mesh,
+    distinct cards)``."""
+    from repro_torch.distributed import ShardMesh, make_shard_mesh
+    if torch.cuda.device_count() > 1:
+        mesh = make_shard_mesh()
+    else:
+        mesh = ShardMesh((dev, dev))
+    check(mesh.home == dev, f"the mesh's home {mesh.home} is not {dev}")
+    return mesh, len(set(mesh.devices))
+
+
+def hold_mesh(one, many, q, filters, what: str, rps=("scan", "graph",
+                                                     "auto")) -> int:
+    """Every filter x read path of ``many`` (on the mesh) bit for bit
+    ``one``'s (on one card), with the same planner decisions.  Returns
+    the reads held."""
+    import numpy as np
+    n = 0
+    for fname, f in filters.items():
+        for rp in rps:
+            ga, da = one.query(q, f, k=10, read_path=rp)
+            gb, db = many.query(q, f, k=10, read_path=rp)
+            if rp != "scan":
+                pa = {c: p.mode for c, p in one.last_plan.items()}
+                pb = {c: p.mode for c, p in many.last_plan.items()}
+                check(pa == pb, f"{what} {fname}/{rp}: mesh plan {pb} != "
+                      f"one card's {pa}")
+            check(bool(np.array_equal(ga, gb))
+                  and bool(np.array_equal(da, db)),
+                  f"{what} {fname}/{rp}: the mesh's answers differ from one "
+                  "card's")
+            n += 1
+    return n
+
+
+def mesh_ops(one, many, q, seed: int) -> None:
+    """The same ingest / delete / seal / expire ops on both managers:
+    ``MESH_OPS_N`` new points near the queries, later in event time, then
+    1% of the live points deleted, a maintenance tick and a seal."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n, d = MESH_OPS_N, q.shape[1]
+    x = (q[rng.integers(0, len(q), n)]
+         + 0.05 * rng.normal(size=(n, d))).astype(np.float32)
+    s = rng.uniform(size=(n, one.m))
+    s[:, one.time_dim] = one.now + (1.0 + np.arange(n)) / N_SHARDED
+    live = np.nonzero(one.alive)[0]
+    dead = rng.choice(live, size=len(live) // 100, replace=False)
+    for mgr in (one, many):
+        mgr.ingest(x, s)
+        mgr.delete(dead)
+        mgr.maintenance()
+        mgr.seal()
+    # a mesh bucket may hold more free rows (its row count divides the
+    # mesh), never other segments
+    occupied = [{cap: (b["live_rows"], b["segments"])
+                 for cap, b in mgr.stats()["pack_buckets"].items()}
+                for mgr in (one, many)]
+    check(occupied[0] == occupied[1], f"5e ops: the mesh packs "
+          f"{occupied[1]}, one card {occupied[0]}")
+
+
+def hop_ms(torch, mgr, q, f) -> float:
+    """A forced-graph read's host-clock ms per hop."""
+    hist = mgr.obs.registry.histogram("graph_hops")
+    before = hist.snapshot()["sum"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.query(q, f, k=10, read_path="graph")
+    dt = (time.perf_counter() - t0) * 1e3
+    hops = hist.snapshot()["sum"] - before
+    check(hops > 0, "5e: the forced-graph read made no hop")
+    return dt / hops
+
+
+def mesh_scan(torch, dev, mesh, keep: dict) -> dict:
+    """Phase 3's 1M x 768 data as ``MESH_SEGMENTS`` segments of
+    ``MESH_SCAN_SHARDS`` shards in a bucketed pack, on the mesh and on one
+    card: the 1000-query scan (no filter, and phase 3's box) bit for bit
+    on both and in distances against phase 3's exact scan; each pack's
+    read timed by CUDA events around back-to-back calls."""
+    import numpy as np
+    from repro_torch.distributed.segment_shards import (
+        SegmentShardSource, build_bucketed_pack, pack_search_blocks)
+    from repro_torch.kernels import ops
+    xh = keep["x"].cpu().numpy()
+    sh = keep["s"].cpu().numpy().astype(np.float64)
+    qh = keep["q"].cpu().numpy()
+    n = len(xh)
+    cuts = np.linspace(0, n, MESH_SEGMENTS + 1).astype(np.int64)
+    srcs = [SegmentShardSource(i, xh[lo:hi], sh[lo:hi],
+                               np.arange(lo, hi, dtype=np.int64),
+                               float(sh[lo:hi, 2].min()),
+                               float(sh[lo:hi, 2].max()))
+            for i, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:]))]
+    out = {}
+    t0 = time.perf_counter()
+    one = build_bucketed_pack(srcs, MESH_SCAN_SHARDS, device=dev)
+    many = build_bucketed_pack(srcs, MESH_SCAN_SHARDS, mesh=mesh)
+    del xh, srcs
+    check(one.bucket_stats() == many.bucket_stats(),
+          "5e scan: the mesh's bucket geometry differs from one card's")
+    vo, vm = one.view(), many.view()
+    per_card = [sum(t[c].numel() * t[c].element_size()
+                    for b in many.buckets.values() for t in b.blk.values())
+                for c in range(mesh.size)]
+    log(f"mesh scan: two packs of {n} x {keep['x'].shape[1]} built in "
+        f"{time.perf_counter() - t0:.1f} s; buckets {many.bucket_stats()}, "
+        f"{many.nbytes} bytes, per mesh entry {per_card}")
+    for fname, f in (("none", None), ("box", keep["box"])):
+        a = pack_search_blocks(vo, qh, f, 10)
+        b = pack_search_blocks(vm, qh, f, 10)
+        check(all(bool(np.array_equal(ga, gb)) and bool(np.array_equal(
+            da, db)) for (ga, da), (gb, db) in zip(a, b)),
+              f"5e scan {fname}: the mesh's answers differ from one card's")
+        _, dd = ops.exact_filtered_search(keep["q"], keep["x"], keep["s"],
+                                          f, 10)
+        check(bool(np.array_equal(a[0][1], dd.cpu().numpy())),
+              f"5e scan {fname}: the pack's distances differ from phase "
+              "3's exact scan")
+        ms_one = cuda_ms(torch, lambda: pack_search_blocks(vo, qh, f, 10),
+                         iters=5)
+        ms_many = cuda_ms(torch, lambda: pack_search_blocks(vm, qh, f, 10),
+                          iters=5)
+        out[fname] = {"one_ms": ms_one, "mesh_ms": ms_many}
+        log(f"mesh scan {fname}: {len(qh)} queries x {n}, one card "
+            f"{ms_one:.3f} ms, mesh {ms_many:.3f} ms ({ms_one / ms_many:.2f}"
+            f"x; CUDA events around back-to-back reads), bit for bit")
+    return out
+
+
+def main_shard_mesh(torch, dev, keep: dict, root: str, seed: int) -> dict:
+    """Phase 5e: 5c's snapshots of 5b's managers restored on the shard mesh
+    and held bit for bit to 5b's managers (on one card) on every filter
+    and read path; the fp32 pair answers one grouped flush, and the fp32
+    snapshot is restored on the mesh under a budget that leaves a bucket
+    cold (scans held); then the same ops go to both pairs and they are
+    held again.  B1, B3 and B4 must launch on every card of the mesh.
+    After the checked part, the 1M scan (:func:`mesh_scan`) and the
+    forced-graph read's ms per hop on one card and on the mesh."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.streaming import SegmentManager
+    from repro_torch.streaming.query import GroupQuery
+    mesh, n_cards = smoke_mesh(torch, dev)
+    log(f"mesh_cards: {n_cards}" + (" (cross-card copies not exercised)"
+                                    if n_cards == 1 else "")
+        + f"; mesh {[str(d) for d in mesh.devices]}, home {mesh.home}")
+    mods = {name: importlib.import_module(f"repro_torch.kernels.{mod}")
+            for name, mod in (("filtered_topk", "filtered_topk"),
+                              ("quant_topk", "quant_topk"),
+                              ("graph_step", "graph_topk"))}
+    for mod in mods.values():
+        mod.reset_launch_count()
+    q, filters = keep["q_sharded"], keep["sharded_filters"]
+    pairs, held = {}, 0
+    for name, one in keep["managers"].items():
+        snap = os.path.join(root, name)
+        t0 = time.perf_counter()
+        many = SegmentManager.restore(snap, shard_mesh=mesh, resume=False)
+        check(many.device == dev and many.shard_mesh is mesh,
+              f"5e[{name}]: the restored manager is not on the mesh")
+        held += hold_mesh(one, many, q, filters, f"mesh[{name}]")
+        log(f"mesh[{name}]: restored on the mesh and held bit for bit in "
+            f"{time.perf_counter() - t0:.1f} s; pack {many._pack.nbytes} "
+            f"bytes, buckets {many.stats()['pack_buckets']}")
+        pairs[name] = (one, many)
+    one, many = pairs["fp32"]
+    groups = [GroupQuery(q[:300], filters["interval"], 10),
+              GroupQuery(q[300:700], filters["box_and_interval"], 10),
+              GroupQuery(q[700:], None, 7)]
+    for ga, gb in zip(one.query_grouped(groups), many.query_grouped(groups)):
+        check(bool(np.array_equal(ga[0], gb[0]))
+              and bool(np.array_equal(ga[1], gb[1])),
+              "5e grouped flush: the mesh's answers differ from one card's")
+    full = many._pack.nbytes
+    largest = max(b.full_nbytes for b in many._pack.buckets.values())
+    budget = min(full // 3, largest - 1)
+    tier = SegmentManager.restore(
+        os.path.join(root, "fp32"), cfg=dataclasses.replace(
+            many.cfg, device_budget_bytes=budget), shard_mesh=mesh,
+        resume=False)
+    held += hold_mesh(one, tier, q, filters, "mesh budget", rps=("scan",))
+    if tier._prefetch_thread is not None:
+        tier._prefetch_thread.join(timeout=120)
+    st = tier.stats()
+    misses = st["obs"]["metrics"]["counters"].get("tier_miss_total", 0)
+    check(misses > 0 and tier._pack.nbytes <= budget,
+          f"5e budget: misses {misses}, resident {tier._pack.nbytes} of "
+          f"budget {budget}")
+    log(f"mesh budget: {budget} of {full} bytes, scans bit for bit; tier "
+        f"{st['tier']}, misses {misses}")
+    del tier
+    for i, (name, (one, many)) in enumerate(pairs.items()):
+        mesh_ops(one, many, q, seed + 50 + i)
+        held += hold_mesh(one, many, q, filters, f"mesh[{name}] after ops")
+    per_card = {kn: mod.launch_counts_by_device()
+                for kn, mod in mods.items()}
+    launches = {kn: mod.launch_count() for kn, mod in mods.items()}
+    log(f"mesh phase: {held} reads held bit for bit plus a grouped flush; "
+        f"launches {launches}, per card {per_card}")
+    for kn, per in per_card.items():
+        for d in set(mesh.devices):
+            check(per.get(d.index, 0) >= 1,
+                  f"kernel {kn} was not launched on {d} in phase 5e")
+    hops = {name: {"one_ms": hop_ms(torch, one, q, keep["sharded_filter"]),
+                   "mesh_ms": hop_ms(torch, many, q, keep["sharded_filter"])}
+            for name, (one, many) in pairs.items()}
+    for name, h in hops.items():
+        log(f"mesh[{name}] forced-graph read: {h['one_ms']:.3f} ms per hop "
+            f"on one card, {h['mesh_ms']:.3f} on the mesh (host clock)")
+    del pairs, one, many
+    scan = mesh_scan(torch, dev, mesh, keep)
+    return {"launches": launches, "per_card": per_card, "cards": n_cards,
+            "hop": hops, "scan": scan}
 
 
 # ---------------------------------------------------------------------------
@@ -2051,7 +2281,8 @@ def measure_cold(torch, dev, name, rest, tier, q, k: int) -> None:
         staged = tpack.stage_admission(bc.cap)
     t0 = time.perf_counter()
     _, up = tpack.upload_admission(staged)
-    up.event.synchronize()
+    for event in up.events:
+        event.synchronize()
     ms_admit = (time.perf_counter() - t0) * 1e3
     del up
     gauges = tier.stats()["obs"]["metrics"]["gauges"]
@@ -3554,10 +3785,20 @@ def main_path(torch, dev, dry: tuple, errs: dict, t_start: float) -> int:
                 f"{mm['plain_ms']:.3f} ms, library {mm['library_ms']:.3f} "
                 f"ms, bound {mm['bound_ms']:.3f} ms ({mm['bound_by']})"
                 + extra)
-    with Phase("5c durability and tiering", torch):
-        # the phase resets every count just before it and reads it after
-        for name, c in main_durability(torch, dev, keep, QUERIES).items():
-            launches[name] += c
+    snap_root = tempfile.mkdtemp(prefix="cubegraph-5c-")
+    try:
+        with Phase("5c durability and tiering", torch):
+            # the phase resets every count just before it and reads it after
+            for name, c in main_durability(torch, dev, keep, QUERIES,
+                                           snap_root).items():
+                launches[name] += c
+        with Phase("5e shard mesh", torch):
+            # the phase resets every count just before it and reads it after
+            mesh_run = main_shard_mesh(torch, dev, keep, snap_root, SEED)
+    finally:
+        shutil.rmtree(snap_root, ignore_errors=True)
+    for name, c in mesh_run["launches"].items():
+        launches[name] += c
     with Phase("5d resilience", torch):
         # the phase resets every count just before it and reads it after
         for name, c in main_chaos(torch, dev, CHAOS_N, D, SEED).items():
@@ -3720,6 +3961,14 @@ def main_path(torch, dev, dry: tuple, errs: dict, t_start: float) -> int:
             for key in ("dense_bound_ms", "pass_share", "live_tile_share",
                         "tile_share", "dense_ms"):
                 entry[key] = mm[key]
+        if name in mesh_run["per_card"]:
+            # phase 5e: launches by CUDA device index on the shard mesh
+            entry["mesh"] = {"cards": mesh_run["cards"],
+                             "launches_per_card": mesh_run["per_card"][name]}
+            if name == "filtered_topk":
+                entry["mesh"]["scan_1m"] = mesh_run["scan"]
+            if name == "graph_step":
+                entry["mesh"]["hop_ms"] = mesh_run["hop"]
         if name == "graph_step":
             # fp32 on the traversal's lanes at the top level; each block
             # type carries the hop's raw lanes too

@@ -24,8 +24,19 @@ Two pack layouts exist:
   for ``StreamConfig(incremental_pack=False)`` and as the simplest
   exactness oracle.
 
-On one card the shard axis is a batch axis of the kernels
-(:func:`make_shard_mesh` refuses more than one device).
+On one card the shard axis is a batch axis of the kernels.  On a
+:class:`ShardMesh` (:func:`make_shard_mesh`) one process drives several
+cards: bucket row ``r`` lives on card ``r % n`` of the mesh's ``n``
+devices (local row ``r // n``; :meth:`ShardMesh.owner`), so every block
+(``x``, ``s``, ``codes``, ``xsq``, ``scales``, ``nbrs``, ``gids``) is a
+tuple of per-card tensors — of one tensor without a shard mesh, whose
+pack lives on a one-entry mesh.
+Each card scans its own rows with the same kernel, only the ``[rows_c, b,
+k']`` candidate lists cross to the mesh's **home** card (its first
+device), and the merge there reads them in global row order, so a mesh
+answers bit for bit like one card.  A mutation clones and writes only the
+owning cards' tensors; residency moves each card's rows between that card
+and page-locked host memory.
 
 Exactness: every shard computes the same fp32 distance the monolithic
 kernel would for the same point (the kernels' per-candidate sums do not
@@ -51,11 +62,13 @@ resident ones bit for bit.  An admission is staged under the owner's lock,
 uploaded on a side CUDA stream off the lock (an event marks its end) and
 installed under the lock, where the pack's consuming stream waits on that
 event.  The budget counts the CUDA bytes of resident blocks
-(``numel * element_size``); the transient cold buffer is not counted.
+(``numel * element_size``), summed over every card of a mesh; the
+transient cold buffer is not counted.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -70,11 +83,11 @@ from ..kernels.ops import (PAD_META, block_layout, next_pow2, round_up,
 from ..obs.trace import NULL_TRACE, block_ready
 
 __all__ = ["BucketView", "BucketedShardPack", "PackView", "PAD_META",
-           "SegmentShardSource", "ShardPack", "bucket_cap_for",
+           "SegmentShardSource", "ShardMesh", "ShardPack", "bucket_cap_for",
            "bucket_graph_seeds", "build_bucketed_pack", "build_shard_pack",
            "host_topk", "make_shard_mesh", "pack_search",
            "pack_search_blocks", "pack_search_blocks_grouped",
-           "stage_bucket"]
+           "resolve_mesh", "stage_bucket"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,19 +116,103 @@ class SegmentShardSource:
     entries: Optional[np.ndarray] = None  # [e] int32 local entry points
 
 
-def make_shard_mesh(n_devices: Optional[int] = None, device=None):
-    """The shard placement of the pack: one card, so the shard axis is a
-    batch axis of the kernels.  Returns ``(device,)``.  More than one
-    device is out of scope of the port and raises."""
-    if n_devices is not None and int(n_devices) > 1:
-        raise NotImplementedError(
-            "a multi-GPU shard mesh is out of scope of repro_torch: on one "
-            "card the shard axis is a batch axis of the kernels")
-    return (resolve_device(device),)
+@dataclasses.dataclass(frozen=True)
+class ShardMesh:
+    """The devices a pack's bucket rows are spread over, in order; the
+    first is the **home** device, where queries enter, candidate lists
+    are merged and a traversal's beam lives.  Repeats are allowed (a mesh
+    of several entries on one card, or ``("cpu",) * 4`` for the CPU
+    tests), and every entry must be of one device type.
+
+    The row -> card map is written here and nowhere else: bucket row
+    ``r`` lives on card ``r % n`` at local row ``r // n`` (:meth:`owner`,
+    :meth:`deal`).  A pack without a mesh uses a one-entry mesh, on which
+    the map is the identity."""
+
+    devices: Tuple[torch.device, ...]
+
+    def __post_init__(self):
+        devs = tuple(resolve_device(d) for d in self.devices)
+        if not devs:
+            raise ValueError("a ShardMesh needs at least one device")
+        if len({d.type for d in devs}) != 1:
+            raise ValueError(f"a ShardMesh spans one device type, got "
+                             f"{[str(d) for d in devs]}")
+        if devs[0].type == "cuda":
+            devs = tuple(torch.device("cuda", torch.cuda.current_device()
+                                      if d.index is None else d.index)
+                         for d in devs)
+        object.__setattr__(self, "devices", devs)
+
+    @property
+    def home(self) -> torch.device:
+        """Where queries enter and candidate lists are merged."""
+        return self.devices[0]
+
+    @property
+    def size(self) -> int:
+        """Entries of the mesh (the row -> card map's modulus)."""
+        return len(self.devices)
+
+    def owner(self, rows):
+        """``(card, local row)`` of bucket rows (an int, numpy array or
+        tensor)."""
+        return rows % self.size, rows // self.size
+
+    def deal(self, a) -> tuple:
+        """A ``[rows, ...]`` array's (numpy or tensor) per-card shares, in
+        card order: card ``c`` gets rows ``c, c + n, ...``."""
+        return tuple(a[c::self.size] for c in range(self.size))
+
+    def split(self, row0: int, n: int):
+        """Global rows ``[row0, row0 + n)`` split by owning card: ``[(card,
+        local slice, slice of the n rows)]``.  A card's rows in a
+        contiguous global range are contiguous locally."""
+        out = []
+        for sel in self.deal(range(row0, row0 + n)):
+            if len(sel):
+                card, loc = self.owner(sel[0])
+                out.append((card, slice(loc, loc + len(sel)),
+                            slice(sel[0] - row0, None, self.size)))
+        return out
+
+    def order(self, rows: int) -> np.ndarray:
+        """Permutation taking the cards' rows concatenated in card order
+        (card 0's local rows, then card 1's, ...) to global row order."""
+        return np.argsort(np.concatenate(self.deal(np.arange(rows))),
+                          kind="stable")
+
+
+def make_shard_mesh(n_devices: Optional[int] = None) -> ShardMesh:
+    """A :class:`ShardMesh` over (up to) ``n_devices`` distinct CUDA cards,
+    all visible cards when ``n_devices`` is None (the reference's
+    contract).  Raises like ``resolve_device`` when no card is present;
+    build a mesh over named devices with ``ShardMesh(devices)``."""
+    if not torch.cuda.is_available():
+        resolve_device("cuda:0")                  # raises: no card
+    avail = torch.cuda.device_count()
+    n = avail if n_devices is None else min(int(n_devices), avail)
+    return ShardMesh(tuple(torch.device("cuda", i) for i in range(n)))
+
+
+def resolve_mesh(device, mesh: Optional[ShardMesh]) -> ShardMesh:
+    """The mesh a pack lives on: ``mesh``, whose home ``device`` must then
+    name, or a one-entry mesh on ``device`` (default: the card)."""
+    if mesh is None:
+        return ShardMesh((resolve_device(device),))
+    if device is not None and ShardMesh((device,)).home != mesh.home:
+        raise ValueError(f"device {str(device)!r} is not the shard mesh's "
+                         f"home {str(mesh.home)!r}")
+    return mesh
 
 
 def _put(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+
+def _place_rows(a: np.ndarray, mesh: ShardMesh) -> tuple:
+    """A host ``[rows, ...]`` stack dealt out to the mesh's cards."""
+    return tuple(_put(p, d) for p, d in zip(mesh.deal(a), mesh.devices))
 
 
 @dataclasses.dataclass
@@ -123,7 +220,9 @@ class ShardPack:
     """Stacked, padded, device-resident shards of a set of sealed segments
     (monolithic layout, rebuilt whole per segment-list generation).
     Deletions between rebuilds are applied with :meth:`mark_dead`
-    (metadata sentinel overwrite + lazy re-upload) — no restacking."""
+    (metadata sentinel overwrite + lazy re-upload) — no restacking.  The
+    device stacks are tuples of per-card rows of ``mesh`` (one entry
+    without a shard mesh)."""
 
     epoch: int
     n_shards: int                    # shards per segment
@@ -131,34 +230,41 @@ class ShardPack:
     seg_ids: np.ndarray              # [g] owning segment id per pack row
     t_min: np.ndarray                # [g] owning segment's time span
     t_max: np.ndarray
-    x: torch.Tensor                  # [g, cap, d] device stack
-    gids_dev: torch.Tensor           # [g, cap] int32 (-1 padding)
+    x: tuple                         # per card [g_c, cap, d] device stack
+    gids_dev: tuple                  # per card [g_c, cap] int32 (-1 pad)
     _s_host: np.ndarray              # [g, cap, m] fp32 host master copy
     _gid_sorted: np.ndarray          # sorted live gids (for mark_dead)
     _gid_flat_pos: np.ndarray        # flat (row*cap + col) per sorted gid
-    _s_dev: Optional[torch.Tensor] = None
+    mesh: ShardMesh
+    _s_dev: Optional[tuple] = None
 
     @property
     def n_rows(self) -> int:
         """Pack rows = segments x shards-per-segment."""
-        return int(self.x.shape[0])
+        return int(self._s_host.shape[0])
 
     @property
     def cap(self) -> int:
         """Padded per-shard point capacity."""
-        return int(self.x.shape[1])
+        return int(self._s_host.shape[1])
+
+    @property
+    def device(self) -> torch.device:
+        """Where queries enter: the mesh's home."""
+        return self.mesh.home
 
     @property
     def nbytes(self) -> int:
         """Device bytes held by the pack (vectors + metadata + gids)."""
-        return int(self.x.numel() * 4 + self._s_host.size * 4
-                   + self.gids_dev.numel() * 4)
+        return int(sum(t.numel() for t in self.x) * 4
+                   + self._s_host.size * 4
+                   + sum(t.numel() for t in self.gids_dev) * 4)
 
     @property
-    def s_dev(self) -> torch.Tensor:
+    def s_dev(self) -> tuple:
         """Device metadata stack, re-uploaded lazily after `mark_dead`."""
         if self._s_dev is None:
-            self._s_dev = _put(self._s_host, self.x.device)
+            self._s_dev = _place_rows(self._s_host, self.mesh)
         return self._s_dev
 
     def mark_dead(self, gids: Sequence[int]) -> int:
@@ -192,14 +298,15 @@ class ShardPack:
 
 def build_shard_pack(sources: Sequence[SegmentShardSource], n_shards: int,
                      epoch: int = 0, cap_multiple: int = 256,
-                     device=None) -> ShardPack:
+                     device=None, mesh: Optional[ShardMesh] = None
+                     ) -> ShardPack:
     """Partition each segment round-robin into ``n_shards`` shards and
     stack all of them into one padded device pack on ``device`` (default:
-    the card)."""
+    the card), or dealt out to the cards of ``mesh``."""
     n_shards = max(int(n_shards), 1)
     if not sources:
         raise ValueError("build_shard_pack needs at least one segment")
-    dev = resolve_device(device)
+    mesh = resolve_mesh(device, mesh)
     m = sources[0].s.shape[1]
     d = sources[0].x.shape[1]
     per_row: List[Tuple[int, np.ndarray, SegmentShardSource]] = []
@@ -226,10 +333,10 @@ def build_shard_pack(sources: Sequence[SegmentShardSource], n_shards: int,
     live = np.nonzero(flat_gid >= 0)[0]
     order = np.argsort(flat_gid[live])
     return ShardPack(epoch=epoch, n_shards=n_shards, m=m, seg_ids=seg_ids,
-                     t_min=t_min, t_max=t_max, x=_put(x, dev),
-                     gids_dev=_put(gid, dev), _s_host=s,
+                     t_min=t_min, t_max=t_max, x=_place_rows(x, mesh),
+                     gids_dev=_place_rows(gid, mesh), _s_host=s,
                      _gid_sorted=flat_gid[live][order],
-                     _gid_flat_pos=live[order])
+                     _gid_flat_pos=live[order], mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -266,8 +373,9 @@ class _Bucket:
     allocated in slots of ``n_shards`` consecutive rows.
 
     ``blk`` maps block names (``kernels.ops.block_layout`` plus ``nbrs``)
-    to tensors: device tensors while the bucket is ``resident``, page-
-    locked host tensors once it is evicted.  A mutation replaces ``blk``
+    to tuples of per-card tensors (one entry without a shard mesh):
+    device tensors while the bucket is ``resident``, page-locked host
+    tensors once it is evicted.  A mutation replaces ``blk``
     with a new dict whose touched tensors are fresh copies (on whichever
     tier the bucket lives), so a :class:`BucketView` captured before it
     keeps reading the pre-mutation tensors.  ``gen`` counts mutations and
@@ -280,7 +388,7 @@ class _Bucket:
     t_max: np.ndarray            # [rows] (-inf free)
     free_slots: List[int]
     gids_h: np.ndarray           # [rows, cap] int32 host mirror (-1 pad)
-    blk: Dict[str, torch.Tensor]
+    blk: Dict[str, tuple]
     resident: bool = True
     gen: int = 0
 
@@ -293,7 +401,8 @@ class _Bucket:
     def full_nbytes(self) -> int:
         """Bytes of this bucket's blocks on whichever tier they live —
         also the upload size of admitting it."""
-        return sum(t.numel() * t.element_size() for t in self.blk.values())
+        return sum(p.numel() * p.element_size()
+                   for t in self.blk.values() for p in t)
 
     @property
     def nbytes(self) -> int:
@@ -309,10 +418,11 @@ class _Bucket:
 @dataclasses.dataclass
 class _Upload:
     """An admission's device blocks, copied on a side stream whose end
-    ``event`` marks (None on the CPU, where the copy is synchronous)."""
+    ``events`` mark, one per card, each on that card's side stream (None
+    on the CPU, where the copy is synchronous)."""
 
-    blk: Dict[str, torch.Tensor]
-    event: Optional[object] = None
+    blk: Dict[str, tuple]
+    events: Optional[tuple] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,19 +438,23 @@ class BucketView:
 
     A **cold** view (``resident=False``) holds the bucket's page-locked
     host tensors in the same fields; :func:`stage_bucket` copies them to
-    the device for one dispatch."""
+    the device for one dispatch.  Every block field is a tuple of the
+    ``mesh``'s per-card tensors (one entry without a shard mesh; card
+    ``c`` holds the rows :meth:`ShardMesh.deal` gives it); :meth:`block`
+    assembles one in global row order."""
 
     cap: int
-    gids: torch.Tensor
+    gids: tuple
     seg_ids: np.ndarray
     t_min: np.ndarray
     t_max: np.ndarray
-    s: torch.Tensor
-    x: Optional[torch.Tensor] = None
-    codes: Optional[torch.Tensor] = None
-    xsq: Optional[torch.Tensor] = None
-    scales: Optional[torch.Tensor] = None
-    nbrs: Optional[torch.Tensor] = None   # [rows, cap, degp] int32
+    s: tuple
+    mesh: ShardMesh
+    x: Optional[tuple] = None
+    codes: Optional[tuple] = None
+    xsq: Optional[tuple] = None
+    scales: Optional[tuple] = None
+    nbrs: Optional[tuple] = None          # per card [rows_c, cap, degp] int32
     # per-packed-segment graph entry points for the stitched traversal:
     # ((row0, flattened positions), ...) — row0 is the owning slot's first
     # bucket row, so the temporal active mask decides seed inclusion
@@ -348,6 +462,23 @@ class BucketView:
     resident: bool = True
     stage_bytes: int = 0
     fill: Optional[np.ndarray] = None
+
+    @property
+    def n_rows(self) -> int:
+        """Allocated rows (live + free) of the bucket."""
+        return int(len(self.seg_ids))
+
+    def block(self, name: str) -> Optional[torch.Tensor]:
+        """One block field as a single tensor in global row order: the
+        one card's tensor, or a mesh's per-card rows interleaved back on
+        the home card (on the host for a cold view)."""
+        t = getattr(self, name)
+        if t is None or len(t) == 1:
+            return None if t is None else t[0]
+        home = self.mesh.home if self.resident else torch.device("cpu")
+        cat = torch.cat([p.to(home) for p in t])
+        perm = torch.as_tensor(self.mesh.order(self.n_rows), device=home)
+        return cat.index_select(0, perm)
 
     @property
     def quantized(self) -> bool:
@@ -383,23 +514,29 @@ class PackView:
     quantize: Optional[str] = None
     host_nbytes: int = 0                  # cold (evicted) bucket bytes
     device: torch.device = torch.device("cpu")
+    mesh: Optional[ShardMesh] = None      # the pack's (set by view())
 
     @property
     def n_rows(self) -> int:
         """Total allocated pack rows across buckets."""
-        return sum(int(b.gids.shape[0]) for b in self.buckets)
+        return sum(b.n_rows for b in self.buckets)
+
+
+_BLOCK_FIELDS = ("gids", "s", "x", "codes", "xsq", "scales", "nbrs")
 
 
 def stage_bucket(bv: BucketView, device: torch.device) -> BucketView:
     """The view a dispatch reads: a resident view as is; a cold view's
     blocks copied to ``device`` (``non_blocking`` from pinned memory, on
-    the current stream, so the kernel launched after it reads the copy).
-    The transient buffer is released when the returned view is dropped."""
+    the current stream, so the kernel launched after it reads the copy) —
+    each card's rows to that card of the view's mesh, whose home is
+    ``device``.  The transient buffer is released when the returned view
+    is dropped."""
     if bv.resident:
         return bv
-    names = ("gids", "s", "x", "codes", "xsq", "scales", "nbrs")
-    moved = {name: getattr(bv, name).to(device, non_blocking=True)
-             for name in names if getattr(bv, name) is not None}
+    moved = {name: tuple(p.to(dev, non_blocking=True) for p, dev in
+                         zip(getattr(bv, name), bv.mesh.devices))
+             for name in _BLOCK_FIELDS if getattr(bv, name) is not None}
     return dataclasses.replace(bv, resident=True, **moved)
 
 
@@ -418,26 +555,35 @@ class BucketedShardPack:
     buckets start resident iff ``resident_default``.  ``fault_hook`` (a
     plain callable, default None) fires at ``admission.stage`` /
     ``admission.upload`` / ``admission.install``.
+
+    With a ``mesh`` (:class:`ShardMesh`) each block is a tuple of the
+    cards' shares of the rows (:meth:`ShardMesh.owner`); without one it is
+    a tuple of one tensor on ``device``.  Every bucket's row count divides
+    the mesh's size (:meth:`_init_slots`), so each card holds an equal
+    share and doubling appends the same number of rows on every card.
     """
 
     def __init__(self, n_shards: int, d: int, m: int, epoch: int = 0,
                  cap_multiple: int = 256, quantize: Optional[str] = None,
                  metrics=None, graph_degree: Optional[int] = None,
-                 device=None, resident_default: bool = True):
+                 device=None, resident_default: bool = True,
+                 mesh: Optional[ShardMesh] = None):
         from ..obs.metrics import NULL_REGISTRY
         self.metrics = NULL_REGISTRY if metrics is None else metrics
-        self.device = resolve_device(device)
+        self.mesh = resolve_mesh(device, mesh)
+        self.device = self.mesh.home
         self.resident_default = bool(resident_default)
         self.fault_hook = None
         # host copies of a card pack's blocks are page-locked, so a cold
         # dispatch or an admission copies them asynchronously
         self._pin = self.device.type == "cuda"
-        # the stream the pack's kernels are launched on (the owner's
-        # queries), which waits on every admission's upload event, and the
-        # side stream admissions upload on
-        self._consumer = (torch.cuda.current_stream(self.device)
+        # per card: the stream the pack's kernels are launched on (the
+        # owner's queries), which waits on every admission's upload event,
+        # and the side stream admissions upload on
+        self._consumer = (tuple(torch.cuda.current_stream(d)
+                                for d in self.mesh.devices)
                           if self._pin else None)
-        self._side = None
+        self._side: Dict[torch.device, object] = {}
         self.n_shards = max(int(n_shards), 1)
         self.d = int(d)
         self.m = int(m)
@@ -487,9 +633,10 @@ class BucketedShardPack:
         return out
 
     # -- placement -----------------------------------------------------
-    def _home(self, resident: bool) -> torch.device:
-        """Where a bucket's blocks live: the pack's device or the host."""
-        return self.device if resident else torch.device("cpu")
+    def _home(self, resident: bool, card: int) -> torch.device:
+        """Where a card's share of a bucket's blocks lives: that card or
+        the host."""
+        return self.mesh.devices[card] if resident else torch.device("cpu")
 
     def _own(self, resident: bool, t: torch.Tensor) -> torch.Tensor:
         """``t`` made fit for a bucket's blocks: page-locked when it is a
@@ -506,29 +653,46 @@ class BucketedShardPack:
         out.copy_(t)
         return out
 
-    def _new_block(self, rows: int, cap: int, resident: bool = True
-                   ) -> Dict[str, torch.Tensor]:
-        """Fresh zero / ``PAD_META`` blocks for ``rows`` bucket rows in the
-        pack's layout, plus the adjacency block when the graph read path
-        is on — on the device, or page-locked on the host for a cold
+    def _new_block(self, rows: int, cap: int, resident: bool = True,
+                   row0: int = 0) -> Dict[str, object]:
+        """Fresh zero / ``PAD_META`` blocks for bucket rows ``[row0, row0 +
+        rows)`` in the pack's layout, plus the adjacency block when the
+        graph read path is on — on the device (each card's share of the
+        rows on that card), or page-locked on the host for a cold
         bucket."""
-        home = self._home(resident)
-        layout = block_layout(self.mode, rows, cap, self.d, self.m)
-        if self.graph_degree:
-            layout["nbrs"] = ((rows, cap, self.degp), torch.int32, -1)
-        return {name: self._own(resident, torch.full(
-                    shape, fill, dtype=dtype, device=home))
-                for name, (shape, dtype, fill) in layout.items()}
+        per_card = {c: loc.stop - loc.start
+                    for c, loc, _ in self.mesh.split(row0, rows)}
+        cards = []
+        for c in range(self.mesh.size):
+            home = self._home(resident, c)
+            layout = block_layout(self.mode, per_card.get(c, 0), cap,
+                                  self.d, self.m)
+            if self.graph_degree:
+                layout["nbrs"] = ((per_card.get(c, 0), cap, self.degp),
+                                  torch.int32, -1)
+            cards.append({name: self._own(resident, torch.full(
+                              shape, fill, dtype=dtype, device=home))
+                          for name, (shape, dtype, fill) in layout.items()})
+        return {name: tuple(blk[name] for blk in cards) for name in cards[0]}
+
+    def _init_slots(self) -> int:
+        """Slot count of a fresh bucket: the smallest whose row total
+        divides the mesh's size, so every card holds an equal share of
+        the rows for any ``n_shards`` (doubling keeps it so).  1 without
+        a mesh."""
+        nd = self.mesh.size
+        return nd // math.gcd(self.n_shards, nd)
 
     def _bucket_for(self, cap: int) -> _Bucket:
         b = self.buckets.get(cap)
         if b is None:
-            rows = self.n_shards
+            slots = self._init_slots()
+            rows = slots * self.n_shards
             res = self.resident_default
             b = _Bucket(cap, seg_ids=np.full(rows, -1, np.int64),
                         t_min=np.full(rows, np.inf, np.float64),
                         t_max=np.full(rows, -np.inf, np.float64),
-                        free_slots=[0],
+                        free_slots=list(range(slots)),
                         gids_h=np.full((rows, cap), -1, np.int32),
                         blk=self._new_block(rows, cap, res), resident=res)
             self.buckets[cap] = b
@@ -536,12 +700,15 @@ class BucketedShardPack:
 
     def _alloc_slot(self, b: _Bucket) -> int:
         """Pop the lowest free slot, doubling the block when none is left
-        (geometric growth keeps appends amortized O(changed segment))."""
+        (geometric growth keeps appends amortized O(changed segment)); on
+        a mesh each card appends its share of the new rows."""
         if not b.free_slots:
             old_slots = b.n_rows // self.n_shards
             add_rows = old_slots * self.n_shards
-            add = self._new_block(add_rows, b.cap, b.resident)
-            b.blk = {name: self._own(b.resident, torch.cat([t, add[name]]))
+            add = self._new_block(add_rows, b.cap, b.resident,
+                                  row0=b.n_rows)
+            b.blk = {name: tuple(self._own(b.resident, torch.cat([p, a]))
+                                 for p, a in zip(t, add[name]))
                      for name, t in b.blk.items()}
             b.gids_h = np.concatenate(
                 [b.gids_h, np.full((add_rows, b.cap), -1, np.int32)])
@@ -647,12 +814,15 @@ class BucketedShardPack:
             # device (a cold bucket takes the delta in its host copy)
             self.metrics.counter("pack_delta_bytes_total").inc(
                 sum(arr.nbytes for arr in staged.values()))
-        home = self._home(b.resident)
         blk = dict(b.blk)
+        split = self.mesh.split(row0, self.n_shards)
         for name, block in staged.items():
-            t = self._clone(b, blk[name])
-            t[rows] = _put(block, home)
-            blk[name] = t
+            parts = list(blk[name])
+            for c, loc, sel in split:
+                t = self._clone(b, parts[c])
+                t[loc] = _put(block[sel], self._home(b.resident, c))
+                parts[c] = t
+            blk[name] = tuple(parts)
         b.blk = blk
         b.gen += 1
         b.gids_h = b.gids_h.copy()
@@ -715,10 +885,15 @@ class BucketedShardPack:
             b = self.buckets[cap]
             rows = np.concatenate([r for r, _ in hits])
             cols = np.concatenate([c for _, c in hits])
-            home = self._home(b.resident)
-            s = self._clone(b, b.blk["s"])
-            s[_put(rows, home), _put(cols, home)] = PAD_META
-            b.blk = dict(b.blk, s=s)
+            card, loc = self.mesh.owner(rows)
+            parts = list(b.blk["s"])
+            for c in np.unique(card):
+                sel = card == c
+                home = self._home(b.resident, int(c))
+                s = self._clone(b, parts[c])
+                s[_put(loc[sel], home), _put(cols[sel], home)] = PAD_META
+                parts[c] = s
+            b.blk = dict(b.blk, s=tuple(parts))
             b.gen += 1
         return total
 
@@ -744,9 +919,12 @@ class BucketedShardPack:
         freed = b.nbytes
         host = {}
         for name, t in b.blk.items():
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=self._pin)
-            h.copy_(t)
-            host[name] = h
+            hs = []
+            for p in t:
+                h = torch.empty(p.shape, dtype=p.dtype, pin_memory=self._pin)
+                h.copy_(p)
+                hs.append(h)
+            host[name] = tuple(hs)
         b.blk = host
         b.resident = False
         b.gen += 1
@@ -769,24 +947,32 @@ class BucketedShardPack:
 
     def upload_admission(self, staged):
         """Device half of an admission, off the owner's lock: copy the
-        staged page-locked blocks to the device on the pack's side stream
-        and record an event at the end of the copies.  Returns ``(gen,
-        upload)`` for :meth:`install_admission`.  Fault point
-        ``admission.upload`` fires first — a crash strands nothing (the
-        host copy still lives in the bucket)."""
+        staged page-locked blocks to the devices, each card's rows to that
+        card on its side stream, and record an event per card at the end
+        of its copies.  Returns ``(gen, upload)`` for
+        :meth:`install_admission`.  Fault point ``admission.upload`` fires
+        first — a crash strands nothing (the host copy still lives in the
+        bucket)."""
         self._fault("admission.upload")
         gen, blocks = staged
+        devices = self.mesh.devices
         if not self._pin:
-            return gen, _Upload({name: t.to(self.device, copy=True)
-                                 for name, t in blocks.items()})
-        if self._side is None:
-            self._side = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(self._side):
-            dev = {name: t.to(self.device, non_blocking=True)
-                   for name, t in blocks.items()}
-            event = torch.cuda.Event()
-            event.record(self._side)
-        return gen, _Upload(dev, event)
+            return gen, _Upload({name: tuple(
+                p.to(dev, copy=True) for p, dev in zip(t, devices))
+                for name, t in blocks.items()})
+        cards, events = [], []
+        for c, dev in enumerate(devices):
+            side = self._side.get(dev)
+            if side is None:
+                side = self._side[dev] = torch.cuda.Stream(dev)
+            with torch.cuda.stream(side):
+                cards.append({name: t[c].to(dev, non_blocking=True)
+                              for name, t in blocks.items()})
+                event = torch.cuda.Event()
+                event.record(side)
+            events.append(event)
+        return gen, _Upload({name: tuple(blk[name] for blk in cards)
+                             for name in blocks}, tuple(events))
 
     def install_admission(self, cap: int, gen: int, upload: _Upload) -> int:
         """Publish an uploaded admission iff the bucket is still cold and
@@ -802,10 +988,11 @@ class BucketedShardPack:
         b = self.buckets.get(cap)
         if b is None or b.resident or b.gen != gen:
             return 0
-        if upload.event is not None:
-            self._consumer.wait_event(upload.event)
-            for t in upload.blk.values():
-                t.record_stream(self._consumer)
+        if upload.events is not None:
+            for c, event in enumerate(upload.events):
+                self._consumer[c].wait_event(event)
+                for t in upload.blk.values():
+                    t[c].record_stream(self._consumer[c])
         b.blk = dict(upload.blk)
         b.resident = True
         b.gen += 1
@@ -831,7 +1018,7 @@ class BucketedShardPack:
         blk = b.blk
         return BucketView(cap, blk["gids"], seg_ids=b.seg_ids.copy(),
                           t_min=b.t_min.copy(), t_max=b.t_max.copy(),
-                          s=blk["s"], x=blk.get("x"),
+                          s=blk["s"], mesh=self.mesh, x=blk.get("x"),
                           codes=blk.get("codes"), xsq=blk.get("xsq"),
                           scales=blk.get("scales"), nbrs=blk.get("nbrs"),
                           entries=entries, resident=b.resident,
@@ -854,21 +1041,24 @@ class BucketedShardPack:
                  if (self.buckets[cap].seg_ids >= 0).any()]
         return PackView(self.epoch, self.n_shards, self.m, tuple(views),
                         self.nbytes, quantize=self.quantize,
-                        host_nbytes=self.host_nbytes, device=self.device)
+                        host_nbytes=self.host_nbytes, device=self.device,
+                        mesh=self.mesh)
 
 
 def build_bucketed_pack(sources: Sequence[SegmentShardSource], n_shards: int,
                         epoch: int = 0, cap_multiple: int = 256,
                         quantize: Optional[str] = None, metrics=None,
                         graph_degree: Optional[int] = None,
-                        device=None, resident_default: bool = True
+                        device=None, resident_default: bool = True,
+                        mesh: Optional[ShardMesh] = None
                         ) -> BucketedShardPack:
     """Cold-build a :class:`BucketedShardPack`: the same
     :meth:`~BucketedShardPack.add_segment` delta applied once per
     segment, so an incrementally maintained pack and a from-scratch build
     of the same segments answer identically.  ``resident_default=False``
     builds every bucket in host memory (no device upload): a budgeted
-    tier then admits only the buckets that fit."""
+    tier then admits only the buckets that fit.  ``mesh`` spreads the
+    bucket rows over its cards."""
     if not sources:
         raise ValueError("build_bucketed_pack needs at least one segment")
     pack = BucketedShardPack(n_shards, sources[0].x.shape[1],
@@ -876,7 +1066,7 @@ def build_bucketed_pack(sources: Sequence[SegmentShardSource], n_shards: int,
                              cap_multiple=cap_multiple, quantize=quantize,
                              metrics=metrics, graph_degree=graph_degree,
                              device=device,
-                             resident_default=resident_default)
+                             resident_default=resident_default, mesh=mesh)
     for src in sources:
         pack.add_segment(src)
     return pack
@@ -934,23 +1124,85 @@ def host_topk(g: np.ndarray, d: np.ndarray, k: int
     return out_g, out_d.astype(np.float32)
 
 
-def _merge_shard_topk(ids, dd, gid_stack, active, k: int):
-    """Shard-local (ids, dists) [g, b, k'] -> exact global (gids, dists)
-    [b, k] on the device.  Inactive rows and misses are masked to +inf
-    before one stable sort over the concatenated shard axis (ties keep
-    the lower position, the order of the reference's ``top_k``)."""
+def _shard_lists(ids, dd, gid_stack):
+    """Shard-local ``(ids, dists) [g, b, k']`` -> ``(gids int64, dists)``
+    with misses at ``+inf``, on the device that scanned them."""
     g, b, kk = ids.shape
     gl = torch.gather(gid_stack.long(), 1,
                       ids.long().clamp_min(0).reshape(g, b * kk))
-    gl = gl.reshape(g, b, kk)
-    valid = (ids >= 0) & active[:, None, None]
-    dd = torch.where(valid, dd, float("inf"))
+    return gl.reshape(g, b, kk), torch.where(ids >= 0, dd, float("inf"))
+
+
+def _merge_lists(gl, dd, active, k: int):
+    """Per-row ``(gids, dists) [g, b, k']`` in global row order -> exact
+    global ``(gids, dists) [b, k]``.  Inactive rows are masked to +inf
+    before one stable sort over the concatenated shard axis (ties keep
+    the lower position, the order of the reference's ``top_k``)."""
+    g, b, kk = gl.shape
+    dd = torch.where(active[:, None, None], dd, float("inf"))
     alld = dd.permute(1, 0, 2).reshape(b, g * kk)
     allg = gl.permute(1, 0, 2).reshape(b, g * kk)
     sd, sel = torch.sort(alld, dim=1, stable=True)
     out_d = sd[:, :k]
     out_g = torch.gather(allg, 1, sel[:, :k])
     return torch.where(torch.isfinite(out_d), out_g, -1), out_d
+
+
+def _card_lists(mesh: ShardMesh, rows: int, active: np.ndarray, launch):
+    """Run ``launch(card) -> [(gids, dists) [rows_c, b, k'], ...]`` on the
+    one card of a one-entry mesh, or on every mesh card holding an active
+    row — all launches queued before any result is read — and bring each
+    card's lists to the home card in global row order (the order the
+    merge breaks ties by).  A card without an active row contributes
+    misses.  Returns the list of ``(gids, dists) [rows, b, k']``."""
+    if mesh.size == 1:
+        return launch(0)
+    home = mesh.home
+    want = [bool(a.any()) for a in mesh.deal(active)]
+    if not any(want):                 # nothing active: scan as one card
+        want = [len(r) > 0 for r in mesh.deal(range(rows))]
+    outs = [launch(c) if w else None for c, w in enumerate(want)]
+    ref = next(o for o in outs if o is not None)
+    perm = torch.as_tensor(mesh.order(rows), device=home)
+    merged = []
+    for j, (g0, _) in enumerate(ref):
+        gls, dds = [], []
+        for c, o in enumerate(outs):
+            if o is None:
+                shape = (len(mesh.deal(range(rows))[c]), *g0.shape[1:])
+                gls.append(torch.full(shape, -1, dtype=torch.long,
+                                      device=home))
+                dds.append(torch.full(shape, float("inf"), device=home))
+            else:
+                # a copy off card c runs on c's current stream after the
+                # kernels queued there, and home's stream waits for it
+                gls.append(o[j][0].to(home, non_blocking=True))
+                dds.append(o[j][1].to(home, non_blocking=True))
+        merged.append((torch.cat(gls).index_select(0, perm),
+                       torch.cat(dds).index_select(0, perm)))
+    return merged
+
+
+def _card_queries(mesh: ShardMesh, q: torch.Tensor) -> list:
+    """The query tensor on each card (sent once, non-blocking; the home
+    card's is ``q`` itself)."""
+    return [q.to(dev, non_blocking=True) for dev in mesh.devices]
+
+
+def _scan_lists(bv: "BucketView", c: int, q, filt, kk: int, metric: str,
+                m: int):
+    """Card ``c``'s scan of a bucket: B3 over its int8 codes or B1 over
+    its fp32 rows, turned into ``(gids, dists)`` on that card."""
+    def part(name):
+        return getattr(bv, name)[c]
+    if bv.quantized:
+        ids, dd = sharded_quant_filtered_topk(
+            q, part("codes"), part("s"), part("xsq"), part("scales"), filt,
+            kk, metric=metric, m=m)
+    else:
+        ids, dd = sharded_filtered_topk(q, part("x"), part("s"), filt, kk,
+                                        metric=metric, m=m)
+    return [_shard_lists(ids, dd, part("gids"))]
 
 
 def pack_search_blocks(view: PackView, queries: np.ndarray,
@@ -978,7 +1230,11 @@ def pack_search_blocks(view: PackView, queries: np.ndarray,
     its dispatch (:func:`stage_bucket`) and scanned by the same kernel at
     the same shapes, so its answers are the resident block's bit for bit;
     ``on_cold(cap, stage_bytes)`` fires once per dispatched cold bucket
-    (tier-miss accounting)."""
+    (tier-miss accounting).
+
+    On a shard mesh each card holding an active row scans its own rows
+    (:func:`_card_lists`) and the merge on the home card reads the lists
+    in global row order, so the answers are one card's bit for bit."""
     queries = np.atleast_2d(np.asarray(queries, np.float32))
     trace = NULL_TRACE if trace is None else trace
     want_obs = observe is not None or trace.enabled
@@ -986,7 +1242,7 @@ def pack_search_blocks(view: PackView, queries: np.ndarray,
     q = None
     for bv in view.buckets:
         active = bv.active_rows(t_lo, t_hi)
-        rows = int(bv.gids.shape[0])
+        rows = bv.n_rows
         n_active = int(active.sum())
         if n_active == 0:
             if observe is not None:       # whole-block temporal prune
@@ -996,8 +1252,9 @@ def pack_search_blocks(view: PackView, queries: np.ndarray,
         cold = not bv.resident
         if cold and on_cold is not None:
             on_cold(bv.cap, bv.stage_bytes)
-        if q is None or q.device != dev:
-            q = torch.as_tensor(queries, device=dev)
+        if q is None or q[0].device != dev:
+            q = _card_queries(view.mesh, torch.as_tensor(queries,
+                                                          device=dev))
         kk = min(k, bv.cap)               # per-shard list length
         # merged width: for k > cap the per-shard lists (= whole shards)
         # still hold up to rows * kk candidates, so the top-k stays exact
@@ -1008,15 +1265,12 @@ def pack_search_blocks(view: PackView, queries: np.ndarray,
                         active_rows=n_active, k_out=k_out,
                         quantized=bv.quantized, resident=not cold) as sp:
             bv = stage_bucket(bv, dev)
-            if bv.quantized:
-                ids, dd = sharded_quant_filtered_topk(
-                    q, bv.codes, bv.s, bv.xsq, bv.scales, filt, kk,
-                    metric=metric, m=view.m)
-            else:
-                ids, dd = sharded_filtered_topk(q, bv.x, bv.s, filt, kk,
-                                                metric=metric, m=view.m)
-            out_g, out_d = _merge_shard_topk(
-                ids, dd, bv.gids, torch.as_tensor(active, device=dev), k_out)
+            (gl, dl), = _card_lists(
+                view.mesh, rows, active,
+                lambda c: _scan_lists(bv, c, q[c], filt, kk, metric,
+                                      view.m))
+            out_g, out_d = _merge_lists(
+                gl, dl, torch.as_tensor(active, device=dev), k_out)
             out_g = out_g.cpu().numpy()
             out_d = out_d.cpu().numpy().astype(np.float32)
         if want_obs:
@@ -1073,7 +1327,7 @@ def pack_search_blocks_grouped(view: PackView, groups,
     expired = [False] * len(groups)
     buckets = list(view.buckets)
     dev = view.device
-    qt: Dict[int, torch.Tensor] = {}
+    qt: Dict[int, list] = {}
     for bi, bv in enumerate(buckets):
         if deadlines is not None:
             for gi, dl in enumerate(deadlines):
@@ -1081,7 +1335,7 @@ def pack_search_blocks_grouped(view: PackView, groups,
                     expired[gi] = True
                     if on_expired is not None:
                         on_expired(gi, len(buckets) - bi)
-        rows = int(bv.gids.shape[0])
+        rows = bv.n_rows
         actives = {}
         live: List[int] = []
         for gi, (_, _, _, t_lo, t_hi) in enumerate(groups):
@@ -1102,8 +1356,8 @@ def pack_search_blocks_grouped(view: PackView, groups,
         cold = not bv.resident
         if cold and on_cold is not None:
             on_cold(bv.cap, bv.stage_bytes)
-        union_active = int(np.logical_or.reduce(
-            [actives[gi] for gi in live]).sum())
+        union = np.logical_or.reduce([actives[gi] for gi in live])
+        union_active = int(union.sum())
         cache_hit = kernels_loaded("fp32") if want_obs else False
         with trace.span("bucket_dispatch_grouped", cap=bv.cap, rows=rows,
                         active_rows=union_active, n_groups=len(live),
@@ -1111,18 +1365,23 @@ def pack_search_blocks_grouped(view: PackView, groups,
             bv = stage_bucket(bv, dev)
             for gi in live:
                 if gi not in qt:
-                    qt[gi] = torch.as_tensor(groups[gi][0], device=dev)
-            sub = [(qt[gi], groups[gi][1], min(groups[gi][2], bv.cap))
-                   for gi in live]
-            results = sharded_filtered_topk_grouped(sub, bv.x, bv.s,
-                                                    metric=metric, m=view.m)
+                    qt[gi] = _card_queries(view.mesh, torch.as_tensor(
+                        groups[gi][0], device=dev))
+
+            def launch(c, bv=bv, live=live):
+                sub = [(qt[gi][c], groups[gi][1], min(groups[gi][2], bv.cap))
+                       for gi in live]
+                results = sharded_filtered_topk_grouped(
+                    sub, bv.x[c], bv.s[c], metric=metric, m=view.m)
+                gids = bv.gids[c]
+                return [_shard_lists(ids, dd, gids) for ids, dd in results]
+            lists = _card_lists(view.mesh, rows, union, launch)
             merged = []
-            for (ids, dd), gi in zip(results, live):
+            for (gl, dl), gi in zip(lists, live):
                 kk = min(groups[gi][2], bv.cap)
                 k_out = min(groups[gi][2], rows * kk)
-                out_g, out_d = _merge_shard_topk(
-                    ids, dd, bv.gids,
-                    torch.as_tensor(actives[gi], device=dev), k_out)
+                out_g, out_d = _merge_lists(
+                    gl, dl, torch.as_tensor(actives[gi], device=dev), k_out)
                 merged.append((out_g.cpu().numpy(),
                                out_d.cpu().numpy().astype(np.float32)))
         n_cand_total = 0
@@ -1197,13 +1456,19 @@ def pack_search(pack, queries: np.ndarray, filt: Optional[Filter],
     k_out = min(k, pack.n_rows * kk)
     with trace.span("pack_dispatch", rows=pack.n_rows, cap=pack.cap,
                     k_out=k_out):
-        dev = pack.x.device
-        ids, dd = sharded_filtered_topk(torch.as_tensor(queries, device=dev),
-                                        pack.x, pack.s_dev, filt, kk,
-                                        metric=metric, m=pack.m)
-        active = torch.as_tensor(pack.active_rows(t_lo, t_hi), device=dev)
-        out_g, out_d = _merge_shard_topk(ids, dd, pack.gids_dev, active,
-                                         k_out)
+        dev = pack.device
+        active = pack.active_rows(t_lo, t_hi)
+        qs = _card_queries(pack.mesh, torch.as_tensor(queries, device=dev))
+        xs, ss, gs = pack.x, pack.s_dev, pack.gids_dev
+
+        def launch(c):
+            ids, dd = sharded_filtered_topk(qs[c], xs[c], ss[c], filt, kk,
+                                            metric=metric, m=pack.m)
+            return [_shard_lists(ids, dd, gs[c])]
+        (gl, dl), = _card_lists(pack.mesh, pack.n_rows, active, launch)
+        out_g, out_d = _merge_lists(gl, dl, torch.as_tensor(active,
+                                                            device=dev),
+                                    k_out)
         block_ready((out_g, out_d))
     gids = np.full((b, k), -1, np.int64)
     dists = np.full((b, k), np.inf, np.float32)

@@ -32,8 +32,8 @@ from .distance import THREADS, copy_width
 
 __all__ = ["FILTER_KINDS", "filtered_topk_call", "filtered_topk_plain",
            "filtered_topk_grouped_call", "filtered_topk_grouped_plain",
-           "launch_config", "launch_count", "grouped_launch_stats",
-           "reset_launch_count", "MAX_KPAD"]
+           "launch_config", "launch_count", "launch_counts_by_device",
+           "grouped_launch_stats", "reset_launch_count", "MAX_KPAD"]
 
 FILTER_KINDS = ref.FILTER_KINDS
 _KIND_CODE = {k: i for i, k in enumerate(FILTER_KINDS)}
@@ -41,6 +41,8 @@ _MAX_M = 16                   # metadata columns the CUDA kernel reads
 MAX_KPAD = 1024
 
 _LAUNCHES = [0]
+# launches per CUDA device index (a shard mesh launches on each card)
+_BY_DEVICE: dict = {}
 # grouped launches among them, and the groups and shard rows they served
 _GROUPED = {"launches": 0, "groups": 0, "shard_rows": 0}
 _LAUNCH_LOCK = threading.Lock()
@@ -50,6 +52,12 @@ def launch_count() -> int:
     """CUDA launches of this kernel in this process, solo and grouped (the
     twin never counts)."""
     return _LAUNCHES[0]
+
+
+def launch_counts_by_device() -> dict:
+    """:func:`launch_count`'s launches by CUDA device index."""
+    with _LAUNCH_LOCK:
+        return dict(_BY_DEVICE)
 
 
 def grouped_launch_stats() -> dict:
@@ -62,6 +70,7 @@ def grouped_launch_stats() -> dict:
 def reset_launch_count() -> None:
     with _LAUNCH_LOCK:
         _LAUNCHES[0] = 0
+        _BY_DEVICE.clear()
         for key in _GROUPED:
             _GROUPED[key] = 0
 
@@ -180,6 +189,7 @@ def _launch(q, x, s, params, kind: str, kpad: int, metric: str,
                            f"cudaError {err}")
     with _LAUNCH_LOCK:
         _LAUNCHES[0] += 1
+        _BY_DEVICE[dev.index] = _BY_DEVICE.get(dev.index, 0) + 1
         if groups > 1:
             _GROUPED["launches"] += 1
             _GROUPED["groups"] += groups

@@ -37,7 +37,8 @@ from ._hopper import MAX_SMEM
 from .filtered_topk import FILTER_KINDS
 
 __all__ = ["beam_step_scores", "beam_step_plain", "bucket_graph_topk",
-           "launch_config", "launch_count", "reset_launch_count"]
+           "launch_config", "launch_count", "launch_counts_by_device",
+           "reset_launch_count"]
 
 _KIND_CODE = {k: i for i, k in enumerate(FILTER_KINDS)}
 _MAX_M = 16
@@ -54,6 +55,8 @@ GROUP = 8
 STAGE_MAX = 64 * 1024
 
 _LAUNCHES = [0]
+# launches per CUDA device index (a shard mesh launches on each card)
+_BY_DEVICE: dict = {}
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -63,9 +66,16 @@ def launch_count() -> int:
     return _LAUNCHES[0]
 
 
+def launch_counts_by_device() -> dict:
+    """:func:`launch_count`'s launches by CUDA device index."""
+    with _LAUNCH_LOCK:
+        return dict(_BY_DEVICE)
+
+
 def reset_launch_count() -> None:
     with _LAUNCH_LOCK:
         _LAUNCHES[0] = 0
+        _BY_DEVICE.clear()
 
 
 def _gather(pos, x, s, scales):
@@ -201,6 +211,7 @@ def beam_step_scores(q, pos, x, s, params, kind: str, metric: str = "l2",
         raise RuntimeError(f"graph_step CUDA launch failed: cudaError {err}")
     with _LAUNCH_LOCK:
         _LAUNCHES[0] += 1
+        _BY_DEVICE[dev.index] = _BY_DEVICE.get(dev.index, 0) + 1
     return out_d, out_ok
 
 
@@ -230,11 +241,12 @@ def _merge_topk(ids_a, d_a, ids_b, d_b, k: int):
     return torch.gather(ids, 1, sel), sd
 
 
-def _traverse(q, gids, nbrs, score, seeds, k: int, ef: int, width: int,
+def _traverse(q, gids, nbr_at, score, seeds, k: int, ef: int, width: int,
               max_iters: int):
     """Stitched best-first traversal over one bucket block.  ``gids
-    [npos]`` and ``nbrs [npos, degp]`` are the flattened gid and
-    adjacency blocks, ``score(pos [b, c]) -> (dists, ok)`` the hop kernel,
+    [npos]`` is the flattened gid block, ``nbr_at(pos)`` reads the
+    adjacency block (``[..., degp]``) at non-negative flattened
+    positions, ``score(pos [b, c]) -> (dists, ok)`` is the hop kernel,
     ``seeds [S]`` flattened positions shared by the batch.  Returns
     ``(gids [b, k], dists [b, k], hops)`` ascending by (dist, gid)."""
     dev = q.device
@@ -278,7 +290,7 @@ def _traverse(q, gids, nbrs, score, seeds, k: int, ef: int, width: int,
         exp_pos = torch.where(exp_ok, torch.gather(beam_pos, 1, sel), -1)
         beam_exp = beam_exp.scatter(1, sel, True)
 
-        nb = nbrs[exp_pos.clamp_min(0)].long()       # [b, w, degp]
+        nb = nbr_at(exp_pos.clamp_min(0)).long()     # [b, w, degp]
         nb = torch.where(exp_pos[:, :, None] >= 0, nb, -1)
         cand = nb.reshape(b, -1)
 
@@ -314,6 +326,62 @@ def _traverse(q, gids, nbrs, score, seeds, k: int, ef: int, width: int,
     return torch.gather(g, 1, order), torch.gather(res_d, 1, order), hops
 
 
+class _MeshBlocks:
+    """A mesh bucket's per-card blocks, read at global flattened positions
+    (``row * cap + col``) from the home card: the mesh says which card
+    owns row ``row`` and at which local row (``ShardMesh.owner``).  A read
+    splits the positions by owning card, sends each card its local
+    positions (the others as ``-1`` for B4, or 0 for a gather, masked
+    afterwards), runs there, and takes each lane's value from its owner
+    on the home card.  The gids are read from a home-card copy made once
+    per traversal (4 bytes a point), so a hop splits two reads: the
+    adjacency and B4."""
+
+    def __init__(self, bv, q, params):
+        self.mesh = bv.mesh
+        self.home = bv.mesh.home
+        self.cap = bv.cap
+        cards = list(enumerate(self.mesh.devices))
+        self.q = [q.to(dev, non_blocking=True) for _, dev in cards]
+        self.params = [params.to(dev, non_blocking=True) for _, dev in cards]
+
+    def split(self, pos):
+        """Owning card and local position of non-negative positions."""
+        card, row = self.mesh.owner(pos // self.cap)
+        return card, row * self.cap + pos % self.cap
+
+    def _combine(self, owner, outs):
+        res = outs[0].to(self.home, non_blocking=True)
+        for c in range(1, len(outs)):
+            mask = owner == c
+            o = outs[c].to(self.home, non_blocking=True)
+            res = torch.where(mask.reshape(mask.shape
+                                           + (1,) * (o.dim() - mask.dim())),
+                              o, res)
+        return res
+
+    def take(self, parts, pos):
+        """``parts[card][local]`` at non-negative global positions."""
+        owner, local = self.split(pos)
+        outs = [parts[c][torch.where(owner == c, local, 0).to(
+                    dev, non_blocking=True)]
+                for c, dev in enumerate(self.mesh.devices)]
+        return self._combine(owner, outs)
+
+    def score(self, pos, block, s, scales, kind, metric):
+        """B4 on every card over the lanes it owns (``-1`` elsewhere)."""
+        owner, local = self.split(pos.clamp_min(0))
+        outs = []
+        for c, dev in enumerate(self.mesh.devices):
+            lp = torch.where((pos >= 0) & (owner == c), local, -1)
+            outs.append(beam_step_scores(
+                self.q[c], lp.to(dev, non_blocking=True), block[c], s[c],
+                self.params[c], kind, metric,
+                scales=None if scales is None else scales[c]))
+        return (self._combine(owner, [d for d, _ in outs]),
+                self._combine(owner, [ok for _, ok in outs]))
+
+
 def bucket_graph_topk(queries, bv, seeds, filt, k: int, *, m: int,
                       metric: str = "l2", ef: int = 64, width: int = 4,
                       max_iters: int = 128
@@ -327,7 +395,14 @@ def bucket_graph_topk(queries, bv, seeds, filt, k: int, *, m: int,
     distances, quantized buckets distances to the dequantized vectors that
     the caller reranks.  Returns ``None`` when the filter has no kernel
     encoding or the bucket has no usable graph / seeds (the caller falls
-    back to the scan path)."""
+    back to the scan path).
+
+    On a shard mesh of several entries (``bv.mesh``) the beam, its merges
+    and the host loop stay on the home card; each hop's adjacency reads
+    and B4 launches go to the cards owning the positions
+    (:class:`_MeshBlocks`).
+    B4's per-lane sum depends on ``d`` alone, so the traversal is the
+    single-card one bit for bit."""
     from .ops import encode_filter
     if bv.nbrs is None or len(seeds) == 0:
         return None
@@ -335,21 +410,34 @@ def bucket_graph_topk(queries, bv, seeds, filt, k: int, *, m: int,
     if enc is None:
         return None
     kind, params = enc
-    dev = bv.gids.device
+    mesh = bv.mesh
+    dev = mesh.home
     q = torch.as_tensor(np.atleast_2d(np.asarray(queries, np.float32)),
                         device=dev)
     k = int(k)
     ef = max(int(ef), k)
     pj = torch.as_tensor(params, device=dev)
     block = bv.codes if bv.quantized else bv.x
+    nbrs = [nb.reshape(-1, nb.shape[-1]) for nb in bv.nbrs]
+    if mesh.size == 1:
+        def nbr_at(pos):
+            return nbrs[0][pos]
 
-    def score(pos):
-        return beam_step_scores(q, pos, block, bv.s, pj, kind, metric,
-                                scales=bv.scales)
-    rows, cap = bv.gids.shape
+        def score(pos):
+            return beam_step_scores(q, pos, block[0], bv.s[0], pj, kind,
+                                    metric, scales=None if bv.scales is None
+                                    else bv.scales[0])
+    else:
+        mb = _MeshBlocks(bv, q, pj)
+
+        def nbr_at(pos):
+            return mb.take(nbrs, pos)
+
+        def score(pos):
+            return mb.score(pos, block, bv.s, bv.scales, kind, metric)
     g, dd, hops = _traverse(
-        q, bv.gids.reshape(-1), bv.nbrs.reshape(rows * cap, -1),
-        score, torch.as_tensor(np.asarray(seeds, np.int64), device=dev),
+        q, bv.block("gids").reshape(-1), nbr_at, score,
+        torch.as_tensor(np.asarray(seeds, np.int64), device=dev),
         k, ef, int(width), int(max_iters))
     return (g.cpu().numpy().astype(np.int64),
             dd.cpu().numpy().astype(np.float32), hops)

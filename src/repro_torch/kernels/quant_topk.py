@@ -27,12 +27,15 @@ from .distance import THREADS, copy_width
 from .filtered_topk import FILTER_KINDS
 
 __all__ = ["quant_topk_call", "quant_topk_plain", "launch_config",
-           "live_tiles", "launch_count", "reset_launch_count", "MAX_KPAD"]
+           "live_tiles", "launch_count", "launch_counts_by_device",
+           "reset_launch_count", "MAX_KPAD"]
 
 _KIND_CODE = {k: i for i, k in enumerate(FILTER_KINDS)}
 _MAX_M = 16
 MAX_KPAD = 2048
 _LAUNCHES = [0]
+# launches per CUDA device index (a shard mesh launches on each card)
+_BY_DEVICE: dict = {}
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -42,9 +45,16 @@ def launch_count() -> int:
     return _LAUNCHES[0]
 
 
+def launch_counts_by_device() -> dict:
+    """:func:`launch_count`'s launches by CUDA device index."""
+    with _LAUNCH_LOCK:
+        return dict(_BY_DEVICE)
+
+
 def reset_launch_count() -> None:
     with _LAUNCH_LOCK:
         _LAUNCHES[0] = 0
+        _BY_DEVICE.clear()
 
 
 def quant_topk_plain(qs, codes, s, xsq, params, kind: str, kpad: int,
@@ -179,4 +189,5 @@ def quant_topk_call(qs, codes, s, xsq, params, kind: str, kpad: int,
         raise RuntimeError(f"quant_topk CUDA launch failed: cudaError {err}")
     with _LAUNCH_LOCK:
         _LAUNCHES[0] += 1
+        _BY_DEVICE[dev.index] = _BY_DEVICE.get(dev.index, 0) + 1
     return out_d, out_i

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..core import CubeGraphConfig, CubeGraphIndex, Filter
-from ..device import resolve_device
+from ..distributed.segment_shards import resolve_mesh
 from ..obs import StreamObs, json_sanitize
 from ..streaming import SegmentManager, StreamConfig
 from .serve_step import generate
@@ -59,8 +59,10 @@ class DocumentStore:
     sharded read path on, as in the reference: with a budget the store's
     device memory is a cache over the sealed corpus, cold buckets living
     in page-locked host memory and streaming through the same kernels.
-    Indexes live on ``device`` (default: the first CUDA card).  The port
-    has one card, so there is no ``shard_mesh``.
+    Indexes live on ``device`` (default: the first CUDA card).  Pass
+    ``shard_mesh`` (``repro_torch.distributed.make_shard_mesh()``) to
+    spread a streaming store's pack over several cards of one process;
+    its home card is ``device``.
     """
 
     def __init__(self, docs: Sequence[Document],
@@ -69,10 +71,11 @@ class DocumentStore:
                  stream_cfg: Optional[StreamConfig] = None,
                  quantize: Optional[str] = None,
                  read_path: Optional[str] = None,
-                 device_budget_bytes: Optional[int] = None, device=None):
+                 device_budget_bytes: Optional[int] = None, device=None,
+                 shard_mesh=None):
         self.docs = list(docs)
         self.streaming = bool(streaming)
-        self.device = resolve_device(device)
+        self.device = resolve_mesh(device, shard_mesh).home
         x = np.stack([d.embedding for d in self.docs]).astype(np.float32)
         s = np.stack([d.metadata for d in self.docs]).astype(np.float64)
         if self.streaming:
@@ -91,7 +94,8 @@ class DocumentStore:
                     stream_cfg, device_budget_bytes=device_budget_bytes,
                     n_shards=max(stream_cfg.n_shards, 1))
             self.manager = SegmentManager(x.shape[1], s.shape[1], stream_cfg,
-                                          device=self.device)
+                                          device=self.device,
+                                          shard_mesh=shard_mesh)
             self.manager.ingest(x, s)
             self.index = None
         else:
@@ -104,6 +108,9 @@ class DocumentStore:
             if device_budget_bytes is not None:
                 raise ValueError("device_budget_bytes requires a streaming "
                                  "store (DocumentStore(streaming=True))")
+            if shard_mesh is not None:
+                raise ValueError("shard_mesh requires a streaming store "
+                                 "(DocumentStore(streaming=True))")
             self.manager = None
             self.index = CubeGraphIndex.build(x, s, index_cfg,
                                               device=self.device)
@@ -118,19 +125,20 @@ class DocumentStore:
     @classmethod
     def restore(cls, docs: Sequence[Document], directory: str,
                 stream_cfg: Optional[StreamConfig] = None, device=None,
-                resume: bool = True) -> "DocumentStore":
+                resume: bool = True, shard_mesh=None) -> "DocumentStore":
         """Warm-start a streaming store from a snapshot directory (written
         by either package) instead of re-ingesting: the manager restores
-        on ``device`` (default: the card) via ``SegmentManager.restore``
-        and answers like the replica that wrote the snapshot.  ``docs``
-        must be the snapshot-time document list, in order — store
-        positions double as global point ids."""
+        on ``device`` (default: the card) or ``shard_mesh`` via
+        ``SegmentManager.restore`` and answers like the replica that wrote
+        the snapshot.  ``docs`` must be the snapshot-time document list,
+        in order — store positions double as global point ids."""
         obj = cls.__new__(cls)
         obj.docs = list(docs)
         obj.streaming = True
         obj.index = None
         obj.manager = SegmentManager.restore(directory, cfg=stream_cfg,
-                                             device=device, resume=resume)
+                                             device=device, resume=resume,
+                                             shard_mesh=shard_mesh)
         obj.device = obj.manager.device
         obj._init_obs()
         if obj.manager.n_total != len(obj.docs):

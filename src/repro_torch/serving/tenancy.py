@@ -115,13 +115,15 @@ class MultiTenantStore:
     serving tier's continuous filtered batching
     (:meth:`~repro_torch.streaming.SegmentManager.query_grouped`) shares
     per-bucket device reads across tenants, which needs the bucketed
-    pack.  The substrate lives on ``device`` (default: the card).
+    pack.  The substrate lives on ``device`` (default: the card);
+    ``shard_mesh`` spreads its pack over the mesh's cards, as the
+    reference's.
     """
 
     def __init__(self, d_emb: int, m: int,
                  stream_cfg: Optional[StreamConfig] = None,
                  index_cfg: Optional[CubeGraphConfig] = None,
-                 device=None):
+                 device=None, shard_mesh=None):
         if stream_cfg is None:
             stream_cfg = StreamConfig(
                 index_cfg=index_cfg or CubeGraphConfig())
@@ -137,7 +139,7 @@ class MultiTenantStore:
             stream_cfg, time_dim=stream_cfg.time_dim % self.m_user,
             n_shards=max(stream_cfg.n_shards, 1))
         self.manager = SegmentManager(d_emb, self.m_user + 1, stream_cfg,
-                                      device=device)
+                                      device=device, shard_mesh=shard_mesh)
         self.obs = self.manager.obs
         self.metrics = self.obs.registry
         self.collections: Dict[str, Collection] = {}
@@ -371,9 +373,11 @@ class MultiTenantStore:
     @classmethod
     def restore(cls, root: str, d_emb: int, m: int,
                 stream_cfg: Optional[StreamConfig] = None,
-                device=None, resume: bool = True) -> "MultiTenantStore":
+                device=None, resume: bool = True,
+                shard_mesh=None) -> "MultiTenantStore":
         """Rebuild the store from a :meth:`snapshot_to` directory: the
-        substrate restores on ``device`` via ``SegmentManager.restore``
+        substrate restores on ``device`` (or ``shard_mesh``) via
+        ``SegmentManager.restore``
         (bit-for-bit query parity) and every tenant catalog rebuilds its
         gid→document mapping.  The layout is the reference's, so either
         package restores the other's snapshot."""
@@ -383,7 +387,7 @@ class MultiTenantStore:
         obj.tenant_dim = int(m)
         obj.manager = SegmentManager.restore(
             str(root_p / "substrate"), cfg=stream_cfg, device=device,
-            resume=resume)
+            resume=resume, shard_mesh=shard_mesh)
         obj.obs = obj.manager.obs
         obj.metrics = obj.obs.registry
         obj.collections = {}

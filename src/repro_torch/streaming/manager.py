@@ -69,7 +69,6 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..core import CubeGraphConfig, Filter
-from ..device import resolve_device
 from .segments import DeltaBuffer, PointStore, SealedSegment, grow_rows
 
 __all__ = ["CompactionPlan", "StreamConfig", "SegmentManager"]
@@ -166,11 +165,15 @@ class SegmentManager:
     Thread-safety: all list/ledger mutations take ``_lock``; reads snapshot
     under the lock and run lock-free (see the module docstring for the
     compaction epoch guarantee).  Indexes and scans run on ``device``
-    (default: the card).
+    (default: the card).  ``shard_mesh`` (optional, a ``ShardMesh`` from
+    ``repro_torch.distributed.make_shard_mesh``) spreads the sharded read
+    path's bucket rows over its cards; the delta buffer, the indexes of
+    unsharded segments and the merges stay on its home card, which is
+    ``device`` (the two must agree when both are given).
     """
 
     def __init__(self, d: int, m: int, cfg: StreamConfig = StreamConfig(),
-                 device=None, _restoring: bool = False):
+                 device=None, shard_mesh=None, _restoring: bool = False):
         self.d = int(d)
         self.m = int(m)
         self.cfg = cfg
@@ -204,7 +207,12 @@ class SegmentManager:
                                  "incremental pack (n_shards >= 1, "
                                  "incremental_pack=True) — residency is a "
                                  "bucketed-pack concept")
-        self.device = resolve_device(device)
+        if shard_mesh is not None and cfg.n_shards < 1:
+            raise ValueError("shard_mesh requires the sharded read path "
+                             "(StreamConfig.n_shards >= 1)")
+        from ..distributed.segment_shards import resolve_mesh
+        self.device = resolve_mesh(device, shard_mesh).home
+        self.shard_mesh = shard_mesh
         self.time_dim = cfg.time_dim % m
         self.delta = DeltaBuffer(d, m, self.time_dim,
                                  capacity=min(cfg.seal_max_points, 4096),
@@ -769,11 +777,11 @@ class SegmentManager:
                 cap_multiple=self.cfg.pack_cap_multiple,
                 quantize=self.cfg.quantize, metrics=self.obs.registry,
                 graph_degree=self.graph_degree, device=self.device,
-                resident_default=self.tier is None)
+                resident_default=self.tier is None, mesh=self.shard_mesh)
         else:
             pack = build_shard_pack(sources, self.cfg.n_shards, epoch,
                                     cap_multiple=self.cfg.pack_cap_multiple,
-                                    device=self.device)
+                                    device=self.device, mesh=self.shard_mesh)
         with self._lock:
             pack.sync_alive(self.alive)
             pack.fault_hook = self.fault_injector
@@ -1035,17 +1043,20 @@ class SegmentManager:
     @classmethod
     def restore(cls, directory: str, cfg: Optional[StreamConfig] = None,
                 device=None, resume: bool = True,
-                mmap_segments: Optional[bool] = None) -> "SegmentManager":
-        """Rebuild a manager on ``device`` (default: the card) from a
-        snapshot directory written by either package: last published
-        manifest + mmapped segment artifacts + WAL-tail replay.  The
-        result answers queries bit-for-bit like the snapshotted manager
-        (see ``streaming.persistence.restore_manager``).  ``resume``
+                mmap_segments: Optional[bool] = None,
+                shard_mesh=None) -> "SegmentManager":
+        """Rebuild a manager on ``device`` (default: the card) or on
+        ``shard_mesh`` from a snapshot directory written by either
+        package: last published manifest + mmapped segment artifacts +
+        WAL-tail replay.  The result answers queries bit-for-bit like the
+        snapshotted manager, whether that ran on one card or a mesh (see
+        ``streaming.persistence.restore_manager``).  ``resume``
         re-attaches persistence to ``directory``; ``cfg`` overrides the
         persisted config (e.g. a ``device_budget_bytes``)."""
         from .persistence import restore_manager
         return restore_manager(directory, cfg=cfg, device=device,
-                               resume=resume, mmap_segments=mmap_segments)
+                               resume=resume, mmap_segments=mmap_segments,
+                               shard_mesh=shard_mesh)
 
     # ------------------------------------------------------------------
     # Read path (fan-out lives in streaming/query.py)

@@ -79,7 +79,6 @@ import numpy as np
 
 from ..core import CubeGraphConfig
 from ..core.cubegraph import load_index, load_index_extras, save_index
-from ..device import resolve_device
 from ..obs.metrics import NULL_REGISTRY
 from .segments import SealedSegment
 
@@ -658,14 +657,17 @@ def _encode_state(manager) -> bytes:
 
 
 def restore_manager(root: str, cfg=None, device=None, resume: bool = True,
-                    mmap_segments: Optional[bool] = None):
+                    mmap_segments: Optional[bool] = None, shard_mesh=None):
     """Rebuild a :class:`SegmentManager` from a snapshot directory.
 
     Loads the last published manifest (checksum-verified), mmaps segment
     artifacts, reconstructs the liveness bitmap / delta buffer / point
     store, replays the WAL tail, and re-derives per-segment validity from
     the final bitmap.  The manager and its indexes live on ``device``
-    (default: the card).  With ``resume`` (default) the manager re-attaches
+    (default: the card); ``shard_mesh`` spreads its pack's bucket rows
+    over the mesh's cards (home card = ``device``).  A snapshot does not
+    record where it ran, so one taken on a mesh restores on one card and
+    the other way round.  With ``resume`` (default) the manager re-attaches
     to ``root`` and keeps persisting; pass ``resume=False`` for a read-only
     clone (e.g. a serving replica warm-starting from a shared export).
 
@@ -707,9 +709,8 @@ def restore_manager(root: str, cfg=None, device=None, resume: bool = True,
             raise RestoreError(
                 f"cfg.time_dim={cfg.time_dim} does not match the "
                 f"snapshot's time_dim={saved['time_dim']} (m={man['m']})")
-    dev = resolve_device(device)
-    mgr = SegmentManager(man["d"], man["m"], cfg, device=dev,
-                         _restoring=True)
+    mgr = SegmentManager(man["d"], man["m"], cfg, device=device,
+                         shard_mesh=shard_mesh, _restoring=True)
 
     with np.load(io.BytesIO(state_bytes)) as z:
         n_total = int(man["n_total"])
@@ -745,7 +746,7 @@ def restore_manager(root: str, cfg=None, device=None, resume: bool = True,
     for entry in man["segments"]:
         seg = load_segment_artifact(os.path.join(root, entry["dir"]),
                                     mmap_mode="r" if mmap else None,
-                                    device=dev)
+                                    device=mgr.device)
         seg.artifacts[os.path.abspath(root)] = entry["dir"]
         mgr.segments.append(seg)
 

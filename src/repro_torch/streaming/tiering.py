@@ -5,6 +5,9 @@ Residency is a *policy*: under ``StreamConfig(device_budget_bytes=...)``
 the :class:`~repro_torch.distributed.segment_shards.BucketedShardPack`
 keeps at most ``budget`` CUDA bytes of bucket blocks resident and demotes
 the rest to page-locked host tensors (``BucketedShardPack.evict_bucket``).
+On a shard mesh the budget is a total over every card, as the reference's
+(a bucket's bytes are summed over its cards), and a tier miss counts the
+bucket's bytes on all of them.
 Three pieces:
 
 * **Exactness for cold reads** — an evicted bucket's host block holds
@@ -176,7 +179,8 @@ def host_reference_topk(bv, queries: np.ndarray, filt, k: int,
     the first ``m`` metadata dims) and the same ``(dist, gid)`` total
     order (delegates the final merge to
     :func:`~repro_torch.distributed.segment_shards.host_topk`).  ``bv``
-    may be resident or cold: its tensors are read back to the host.  Distances are
+    may be resident or cold, on one device or a shard mesh: its blocks are
+    read back to the host in global row order.  Distances are
     numerically — not bitwise — the kernel's (different accumulation
     order), so comparisons use ``allclose`` on distances and exact
     equality on gids away from ties.  Quantized buckets have no single
@@ -186,9 +190,9 @@ def host_reference_topk(bv, queries: np.ndarray, filt, k: int,
     if bv.quantized:
         raise ValueError("host_reference_topk covers fp32 buckets only")
     q = np.asarray(queries, np.float32)
-    x = bv.x.cpu().numpy()                    # [rows, cap, d]
-    s = bv.s.cpu().numpy()                    # [rows, cap, m]
-    g = bv.gids.cpu().numpy().astype(np.int64)  # [rows, cap]
+    x = bv.block("x").cpu().numpy()           # [rows, cap, d]
+    s = bv.block("s").cpu().numpy()           # [rows, cap, m]
+    g = bv.block("gids").cpu().numpy().astype(np.int64)  # [rows, cap]
     rows, cap, d = x.shape
     xf = x.reshape(rows * cap, d)
     sf = s.reshape(rows * cap, -1)

@@ -480,12 +480,14 @@ def test_scan_kernels_deterministic_whatever_passes(card, quantize):
         for bv in pack.view().buckets:
             if quantize:
                 ids, dd = ops.sharded_quant_filtered_topk(
-                    torch.as_tensor(q, device=card), bv.codes, bv.s, bv.xsq,
-                    bv.scales, filt, 64)
+                    torch.as_tensor(q, device=card), bv.block("codes"),
+                    bv.block("s"), bv.block("xsq"), bv.block("scales"), filt,
+                    64)
             else:
                 ids, dd = ops.sharded_filtered_topk(
-                    torch.as_tensor(q, device=card), bv.x, bv.s, filt, 64)
-            g = torch.gather(bv.gids.long(), 1,
+                    torch.as_tensor(q, device=card), bv.block("x"),
+                    bv.block("s"), filt, 64)
+            g = torch.gather(bv.block("gids").long(), 1,
                              ids.long().clamp_min(0).reshape(
                                  ids.shape[0], -1)).reshape(ids.shape)
             g, d = g.cpu().numpy(), dd.cpu().numpy()
@@ -514,7 +516,7 @@ def test_cold_bucket_answers_equal_resident_on_card(card, quantize):
             pack.evict_bucket(cap)
         assert pack.nbytes == 0 and pack.host_nbytes > 0
         view = pack.view()
-        assert all(not bv.resident and bv.s.is_pinned()
+        assert all(not bv.resident and bv.block("s").is_pinned()
                    for bv in view.buckets)
         before = mod.launch_count()
         cold = tss.pack_search_blocks(view, q, filt, 40)
@@ -541,8 +543,9 @@ def test_side_stream_admission_on_card(card, quantize):
     ups = [(cap, pack.upload_admission(pack.stage_admission(cap)))
            for cap in caps]
     for cap, (gen, up) in ups:
-        assert up.event is not None
-        assert all(t.device.type == "cuda" for t in up.blk.values())
+        assert up.events is not None
+        assert all(p.device.type == "cuda" for t in up.blk.values()
+                   for p in t)
         assert pack.install_admission(cap, gen, up) > 0
         assert pack.buckets[cap].resident
     again = tss.pack_search_blocks(pack.view(), q, _FILTERS["box"], 40)
@@ -589,6 +592,57 @@ def test_restore_onto_card_equals_original(card, tmp_path):
                 assert np.array_equal(base[0], gb)
                 assert np.array_equal(base[1], db)
                 assert r.stats()["tier"]["resident_bytes"] <= budget
+
+
+def test_mesh_over_every_card_equals_one_card(card):
+    """A shard mesh over every visible card (two entries on the one card
+    where only one is visible) answers fp32 and int8 managers' scan,
+    graph and auto reads, and a grouped flush, bit for bit like one card,
+    and launches B1, B3 and B4 on each card of the mesh."""
+    import importlib
+    from repro_torch.core import CubeGraphConfig
+    from repro_torch.distributed import ShardMesh, make_shard_mesh
+    from repro_torch.streaming import SegmentManager, StreamConfig
+    from repro_torch.streaming.query import GroupQuery
+    n = torch.cuda.device_count()
+    mesh = ShardMesh((card,) * 2) if n == 1 else make_shard_mesh()
+    assert mesh.home == card
+    mods = {name: importlib.import_module("repro_torch.kernels." + name)
+            for name in ("filtered_topk", "quant_topk", "graph_topk")}
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(3000, 32)).astype(np.float32)
+    s = rng.uniform(size=(3000, 3))
+    s[:, 2] = np.arange(3000) / 3000
+    q = rng.normal(size=(24, 32)).astype(np.float32)
+    for quantize in (None, "int8"):
+        cfg = StreamConfig(time_dim=2, seal_max_points=400, n_shards=3,
+                           read_path="auto", quantize=quantize,
+                           index_cfg=CubeGraphConfig(n_layers=2, m_intra=8,
+                                                     m_cross=2))
+        one = SegmentManager(32, 3, cfg, device=card)
+        many = SegmentManager(32, 3, cfg, shard_mesh=mesh)
+        for mgr in (one, many):
+            mgr.ingest(x, s)
+            mgr.delete(np.arange(0, 3000, 11))
+        for m in mods.values():
+            m.reset_launch_count()
+        for filt in (None, _FILTERS["box"]):
+            for rp in ("scan", "graph", "auto"):
+                ga, da = many.query(q, filt, k=10, read_path=rp)
+                gb, db = one.query(q, filt, k=10, read_path=rp)
+                assert np.array_equal(ga, gb) and np.array_equal(da, db)
+        used = ("quant_topk" if quantize else "filtered_topk", "graph_topk")
+        for name in used:
+            per = mods[name].launch_counts_by_device()
+            assert all(per.get(d.index, 0) > 0 for d in mesh.devices), \
+                (name, per)
+        if quantize is None:
+            groups = [GroupQuery(q[:8], None, 10),
+                      GroupQuery(q[8:], _FILTERS["box"], 7)]
+            for a, b in zip(many.query_grouped(groups),
+                            one.query_grouped(groups)):
+                assert np.array_equal(a[0], b[0])
+                assert np.array_equal(a[1], b[1])
 
 
 # ---------------------------------------------------------------------------

@@ -188,7 +188,7 @@ def test_bucket_graph_topk_matches_reference(name, quantize, monkeypatch):
                                      width=4, max_iters=64,
                                      use_pallas=False)
         with monkeypatch.context() as mp:
-            spy = _LaneSpy(mp, tb.gids, seeds)
+            spy = _LaneSpy(mp, tb.block("gids"), seeds)
             out_t = tg.bucket_graph_topk(q, tb, seeds, port_filter(filt),
                                          10, m=3, ef=32, width=4,
                                          max_iters=64)

@@ -17,6 +17,8 @@ incremental pack vs cold build, a view captured before mutations — the
 distances must be equal bit for bit, and ids wherever distances are
 unique.
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -214,8 +216,20 @@ def test_bucket_geometry_matches_reference():
     assert jp.bucket_stats() == tp.bucket_stats()
     assert [jss.bucket_cap_for(n, 3) for n in (1, 700, 5000)] == \
         [tss.bucket_cap_for(n, 3) for n in (1, 700, 5000)]
-    with pytest.raises(NotImplementedError):
-        tss.make_shard_mesh(2)
+    # a mesh on an explicit device tuple: the reference's geometry (its
+    # mesh here has the worker's one device; its slot rule is checked on
+    # a stand-in mesh of each size)
+    mesh = tss.ShardMesh(("cpu",))
+    assert tss.build_bucketed_pack(tsrc, n_shards=2, mesh=mesh) \
+        .bucket_stats() == jss.build_bucketed_pack(
+            jsrc, n_shards=2, mesh=jss.make_shard_mesh(1)).bucket_stats()
+    for nd in (1, 2, 3, 4):
+        stand_in = types.SimpleNamespace(devices=np.empty(nd))
+        for ns in range(1, 7):
+            tp_nd = tss.BucketedShardPack(ns, 8, 3,
+                                          mesh=tss.ShardMesh(("cpu",) * nd))
+            jp_nd = jss.BucketedShardPack(ns, 8, 3, mesh=stand_in)
+            assert tp_nd._init_slots() == jp_nd._init_slots()
 
 
 def _timed(n, d=24, seed=0):

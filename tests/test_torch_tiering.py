@@ -360,14 +360,14 @@ def test_residency_state_machine():
     rv = next(v for v in before.buckets if v.cap == cap)
     assert not cv.resident and cv.stage_bytes == full
     for name in ("x", "s", "gids", "nbrs"):
-        assert torch.equal(getattr(cv, name), getattr(rv, name))
+        assert torch.equal(cv.block(name), rv.block(name))
     assert pack.bucket_stats()[cap]["resident"] == 0
     # a cold mutation is copy-on-write: the captured cold view keeps its
     # bytes, the next view sees the sentinel
-    dead = int(cv.gids[0, 0])
+    dead = int(cv.block("gids")[0, 0])
     assert pack.mark_dead([dead]) == 1
-    assert float(cv.s[0, 0, 0]) < 1e29
-    assert float(pack.bucket_view(cap).s[0, 0, 0]) > 1e29
+    assert float(cv.block("s")[0, 0, 0]) < 1e29
+    assert float(pack.bucket_view(cap).block("s")[0, 0, 0]) > 1e29
     # a stale admission (a delta landed mid-upload) is discarded
     staged = pack.stage_admission(cap)
     up = pack.upload_admission(staged)
@@ -415,7 +415,7 @@ def test_cold_dispatch_equals_resident_and_host_reference():
     assert misses == [bv.cap for bv in cold_view.buckets]
     for (ga, da), (gb, db) in zip(resident, cold):
         assert np.array_equal(ga, gb) and np.array_equal(da, db)
-    x = np.concatenate([bv.x.reshape(-1, 12).numpy()
+    x = np.concatenate([bv.block("x").reshape(-1, 12).numpy()
                         for bv in cold_view.buckets])
     for bv, (gk, dk) in zip(cold_view.buckets, cold):
         gh, dh = host_reference_topk(bv, q, filt, gk.shape[1], -np.inf,
