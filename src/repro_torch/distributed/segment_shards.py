@@ -80,6 +80,7 @@ from ..kernels.ops import (PAD_META, block_layout, next_pow2, round_up,
                            kernels_loaded, sharded_filtered_topk,
                            sharded_filtered_topk_grouped,
                            sharded_quant_filtered_topk)
+from ..obs.metrics import NULL_REGISTRY, count_h2d
 from ..obs.trace import NULL_TRACE, block_ready
 
 __all__ = ["BucketView", "BucketedShardPack", "PackView", "PAD_META",
@@ -525,18 +526,21 @@ class PackView:
 _BLOCK_FIELDS = ("gids", "s", "x", "codes", "xsq", "scales", "nbrs")
 
 
-def stage_bucket(bv: BucketView, device: torch.device) -> BucketView:
+def stage_bucket(bv: BucketView, device: torch.device,
+                 registry=NULL_REGISTRY) -> BucketView:
     """The view a dispatch reads: a resident view as is; a cold view's
     blocks copied to ``device`` (``non_blocking`` from pinned memory, on
     the current stream, so the kernel launched after it reads the copy) —
     each card's rows to that card of the view's mesh, whose home is
-    ``device``.  The transient buffer is released when the returned view
-    is dropped."""
+    ``device``; their bytes count in ``registry``.  The transient buffer
+    is released when the returned view is dropped."""
     if bv.resident:
         return bv
     moved = {name: tuple(p.to(dev, non_blocking=True) for p, dev in
                          zip(getattr(bv, name), bv.mesh.devices))
              for name in _BLOCK_FIELDS if getattr(bv, name) is not None}
+    count_h2d(registry, "cold_stage", sum(
+        t.numel() * t.element_size() for ts in moved.values() for t in ts))
     return dataclasses.replace(bv, resident=True, **moved)
 
 
@@ -1148,13 +1152,15 @@ def _merge_lists(gl, dd, active, k: int):
     return torch.where(torch.isfinite(out_d), out_g, -1), out_d
 
 
-def _card_lists(mesh: ShardMesh, rows: int, active: np.ndarray, launch):
+def _card_lists(mesh: ShardMesh, rows: int, active: np.ndarray, launch,
+                registry=NULL_REGISTRY):
     """Run ``launch(card) -> [(gids, dists) [rows_c, b, k'], ...]`` on the
     one card of a one-entry mesh, or on every mesh card holding an active
     row — all launches queued before any result is read — and bring each
     card's lists to the home card in global row order (the order the
     merge breaks ties by).  A card without an active row contributes
-    misses.  Returns the list of ``(gids, dists) [rows, b, k']``."""
+    misses.  Returns the list of ``(gids, dists) [rows, b, k']``; the row
+    order's copy to the home card counts in ``registry``."""
     if mesh.size == 1:
         return launch(0)
     home = mesh.home
@@ -1163,7 +1169,9 @@ def _card_lists(mesh: ShardMesh, rows: int, active: np.ndarray, launch):
         want = [len(r) > 0 for r in mesh.deal(range(rows))]
     outs = [launch(c) if w else None for c, w in enumerate(want)]
     ref = next(o for o in outs if o is not None)
-    perm = torch.as_tensor(mesh.order(rows), device=home)
+    order = mesh.order(rows)
+    perm = torch.as_tensor(order, device=home)
+    count_h2d(registry, "other", order.nbytes)
     merged = []
     for j, (g0, _) in enumerate(ref):
         gls, dds = [], []
@@ -1190,18 +1198,19 @@ def _card_queries(mesh: ShardMesh, q: torch.Tensor) -> list:
 
 
 def _scan_lists(bv: "BucketView", c: int, q, filt, kk: int, metric: str,
-                m: int):
+                m: int, registry=NULL_REGISTRY):
     """Card ``c``'s scan of a bucket: B3 over its int8 codes or B1 over
-    its fp32 rows, turned into ``(gids, dists)`` on that card."""
+    its fp32 rows, turned into ``(gids, dists)`` on that card (the
+    launch's filter parameters count in ``registry``)."""
     def part(name):
         return getattr(bv, name)[c]
     if bv.quantized:
         ids, dd = sharded_quant_filtered_topk(
             q, part("codes"), part("s"), part("xsq"), part("scales"), filt,
-            kk, metric=metric, m=m)
+            kk, metric=metric, m=m, registry=registry)
     else:
         ids, dd = sharded_filtered_topk(q, part("x"), part("s"), filt, kk,
-                                        metric=metric, m=m)
+                                        metric=metric, m=m, registry=registry)
     return [_shard_lists(ids, dd, part("gids"))]
 
 
@@ -1209,7 +1218,7 @@ def pack_search_blocks(view: PackView, queries: np.ndarray,
                        filt: Optional[Filter], k: int,
                        t_lo: float = -np.inf, t_hi: float = np.inf,
                        metric: str = "l2", trace=None, observe=None,
-                       on_cold=None
+                       on_cold=None, registry=None
                        ) -> List[Tuple[np.ndarray, np.ndarray]]:
     """One fused-kernel launch per non-empty, temporally unpruned bucket.
 
@@ -1221,10 +1230,14 @@ def pack_search_blocks(view: PackView, queries: np.ndarray,
     (``k = rerank_multiple * final_k``) and reranks the union exactly at
     fp32 (``repro_torch.quant.rerank_exact``).
 
-    ``trace`` opens one span per dispatched bucket, stopped only after
-    the bucket's device results are ready; ``observe``
-    (``BucketStats.observe``) receives one observation per bucket —
-    ``cache_hit`` meaning the scan kernel was already loaded.
+    ``trace`` opens a ``queries_upload`` span around the queries' copy
+    and one ``bucket_dispatch`` span per dispatched bucket, stopped only
+    after the bucket's device results are ready, with a ``bucket_fetch``
+    child around the active mask's copy, the merge of the shard lists and
+    the copy back (the host's wait on the bucket's kernels);
+    ``observe`` (``BucketStats.observe``) receives one observation per
+    bucket — ``cache_hit`` meaning the scan kernel was already loaded.
+    ``registry`` counts every copy to the device (``h2d_bytes_total``).
 
     A cold bucket (``resident=False``) is copied to the view's device for
     its dispatch (:func:`stage_bucket`) and scanned by the same kernel at
@@ -1237,6 +1250,7 @@ def pack_search_blocks(view: PackView, queries: np.ndarray,
     in global row order, so the answers are one card's bit for bit."""
     queries = np.atleast_2d(np.asarray(queries, np.float32))
     trace = NULL_TRACE if trace is None else trace
+    registry = NULL_REGISTRY if registry is None else registry
     want_obs = observe is not None or trace.enabled
     blocks: List[Tuple[np.ndarray, np.ndarray]] = []
     q = None
@@ -1253,8 +1267,10 @@ def pack_search_blocks(view: PackView, queries: np.ndarray,
         if cold and on_cold is not None:
             on_cold(bv.cap, bv.stage_bytes)
         if q is None or q[0].device != dev:
-            q = _card_queries(view.mesh, torch.as_tensor(queries,
-                                                          device=dev))
+            with trace.span("queries_upload"):
+                q = _card_queries(view.mesh, torch.as_tensor(queries,
+                                                              device=dev))
+            count_h2d(registry, "scan_queries", queries.nbytes)
         kk = min(k, bv.cap)               # per-shard list length
         # merged width: for k > cap the per-shard lists (= whole shards)
         # still hold up to rows * kk candidates, so the top-k stays exact
@@ -1264,15 +1280,17 @@ def pack_search_blocks(view: PackView, queries: np.ndarray,
         with trace.span("bucket_dispatch", cap=bv.cap, rows=rows,
                         active_rows=n_active, k_out=k_out,
                         quantized=bv.quantized, resident=not cold) as sp:
-            bv = stage_bucket(bv, dev)
+            bv = stage_bucket(bv, dev, registry)
             (gl, dl), = _card_lists(
                 view.mesh, rows, active,
                 lambda c: _scan_lists(bv, c, q[c], filt, kk, metric,
-                                      view.m))
-            out_g, out_d = _merge_lists(
-                gl, dl, torch.as_tensor(active, device=dev), k_out)
-            out_g = out_g.cpu().numpy()
-            out_d = out_d.cpu().numpy().astype(np.float32)
+                                      view.m, registry), registry)
+            with trace.span("bucket_fetch"):
+                out_g, out_d = _merge_lists(
+                    gl, dl, torch.as_tensor(active, device=dev), k_out)
+                count_h2d(registry, "other", active.nbytes)
+                out_g = out_g.cpu().numpy()
+                out_d = out_d.cpu().numpy().astype(np.float32)
         if want_obs:
             n_cand = int((out_g >= 0).sum())
             sp.annotate(candidates=n_cand, cache_hit=cache_hit)
@@ -1289,7 +1307,8 @@ def pack_search_blocks_grouped(view: PackView, groups,
                                metric: str = "l2", trace=None,
                                observe=None, on_cold=None,
                                deadlines=None, on_expired=None,
-                               fault=None, observe_group=None
+                               fault=None, observe_group=None,
+                               registry=None
                                ) -> List[List[Tuple[np.ndarray, np.ndarray]]]:
     """Heterogeneous-request sibling of :func:`pack_search_blocks`: several
     ``(queries, filt, k, t_lo, t_hi)`` request groups scan the pack's fp32
@@ -1314,10 +1333,13 @@ def pack_search_blocks_grouped(view: PackView, groups,
     ``query.bucket`` fault point); ``observe`` gets one union observation
     per bucket, ``observe_group(group_idx, cap, rows=, active_rows=,
     candidates=, candidate_slots=, cache_hit=)`` the same dispatch per
-    group (per-tenant ``BucketStats``).  Returns one candidate-block list
-    per group (a dropped group keeps the blocks gathered before its
-    deadline passed)."""
+    group (per-tenant ``BucketStats``).  ``trace`` and ``registry`` see
+    the spans and copies :func:`pack_search_blocks` opens and counts, a
+    ``queries_upload`` per bucket that first meets a group.  Returns one
+    candidate-block list per group (a dropped group keeps the blocks
+    gathered before its deadline passed)."""
     trace = NULL_TRACE if trace is None else trace
+    registry = NULL_REGISTRY if registry is None else registry
     groups = [(np.atleast_2d(np.asarray(q, np.float32)), f, int(k),
                float(t_lo), float(t_hi)) for q, f, k, t_lo, t_hi in groups]
     want_obs = (observe is not None or observe_group is not None
@@ -1362,28 +1384,36 @@ def pack_search_blocks_grouped(view: PackView, groups,
         with trace.span("bucket_dispatch_grouped", cap=bv.cap, rows=rows,
                         active_rows=union_active, n_groups=len(live),
                         resident=not cold) as sp:
-            bv = stage_bucket(bv, dev)
-            for gi in live:
-                if gi not in qt:
-                    qt[gi] = _card_queries(view.mesh, torch.as_tensor(
-                        groups[gi][0], device=dev))
+            bv = stage_bucket(bv, dev, registry)
+            if any(gi not in qt for gi in live):
+                with trace.span("queries_upload"):
+                    for gi in live:
+                        if gi not in qt:
+                            qt[gi] = _card_queries(view.mesh, torch.as_tensor(
+                                groups[gi][0], device=dev))
+                            count_h2d(registry, "scan_queries",
+                                      groups[gi][0].nbytes)
 
             def launch(c, bv=bv, live=live):
                 sub = [(qt[gi][c], groups[gi][1], min(groups[gi][2], bv.cap))
                        for gi in live]
                 results = sharded_filtered_topk_grouped(
-                    sub, bv.x[c], bv.s[c], metric=metric, m=view.m)
+                    sub, bv.x[c], bv.s[c], metric=metric, m=view.m,
+                    registry=registry)
                 gids = bv.gids[c]
                 return [_shard_lists(ids, dd, gids) for ids, dd in results]
-            lists = _card_lists(view.mesh, rows, union, launch)
+            lists = _card_lists(view.mesh, rows, union, launch, registry)
             merged = []
-            for (gl, dl), gi in zip(lists, live):
-                kk = min(groups[gi][2], bv.cap)
-                k_out = min(groups[gi][2], rows * kk)
-                out_g, out_d = _merge_lists(
-                    gl, dl, torch.as_tensor(actives[gi], device=dev), k_out)
-                merged.append((out_g.cpu().numpy(),
-                               out_d.cpu().numpy().astype(np.float32)))
+            with trace.span("bucket_fetch"):
+                for (gl, dl), gi in zip(lists, live):
+                    kk = min(groups[gi][2], bv.cap)
+                    k_out = min(groups[gi][2], rows * kk)
+                    out_g, out_d = _merge_lists(
+                        gl, dl, torch.as_tensor(actives[gi], device=dev),
+                        k_out)
+                    count_h2d(registry, "other", actives[gi].nbytes)
+                    merged.append((out_g.cpu().numpy(),
+                                   out_d.cpu().numpy().astype(np.float32)))
         n_cand_total = 0
         for (out_g, out_d), gi in zip(merged, live):
             blocks[gi].append((out_g, out_d))
@@ -1412,7 +1442,7 @@ def pack_search(pack, queries: np.ndarray, filt: Optional[Filter],
                 k: int, t_lo: float = -np.inf, t_hi: float = np.inf,
                 metric: str = "l2", lookup=None,
                 rerank_multiple: int = 4, trace=None, observe=None,
-                on_cold=None) -> Tuple[np.ndarray, np.ndarray]:
+                on_cold=None, registry=None) -> Tuple[np.ndarray, np.ndarray]:
     """Fan one query batch out over every active shard of the pack and
     merge the shard-local top-k exactly.
 
@@ -1421,10 +1451,12 @@ def pack_search(pack, queries: np.ndarray, filt: Optional[Filter],
     s, present)`` (the manager's point-store getter) for the exact fp32
     rerank of its over-fetched (``rerank_multiple * k``) candidates.
     Returns ``(gids [b, k] int64, dists [b, k] fp32)`` with ``-1`` /
-    ``+inf`` padding."""
+    ``+inf`` padding.  ``registry`` counts the copies to the device and
+    the rerank's candidates and rows."""
     queries = np.atleast_2d(np.asarray(queries, np.float32))
     b = queries.shape[0]
     trace = NULL_TRACE if trace is None else trace
+    registry = NULL_REGISTRY if registry is None else registry
     if isinstance(pack, (BucketedShardPack, PackView)):
         view = pack.view() if isinstance(pack, BucketedShardPack) else pack
         quantized = view.quantize is not None
@@ -1432,7 +1464,8 @@ def pack_search(pack, queries: np.ndarray, filt: Optional[Filter],
             else k
         blocks = pack_search_blocks(view, queries, filt, k_fetch, t_lo=t_lo,
                                     t_hi=t_hi, metric=metric, trace=trace,
-                                    observe=observe, on_cold=on_cold)
+                                    observe=observe, on_cold=on_cold,
+                                    registry=registry)
         if not blocks:
             return (np.full((b, k), -1, np.int64),
                     np.full((b, k), np.inf, np.float32))
@@ -1447,7 +1480,8 @@ def pack_search(pack, queries: np.ndarray, filt: Optional[Filter],
             with trace.span("rerank_fp32", overfetch=int(g.shape[1]),
                             k=k) as sp:
                 out = rerank_exact(queries, g, k, lookup, metric=metric,
-                                   device=view.device)
+                                   device=view.device, trace=trace,
+                                   registry=registry)
                 sp.annotate(candidates=int((out[0] >= 0).sum()))
             return out
         d = np.concatenate([bd for _, bd in blocks], axis=1)
@@ -1459,16 +1493,22 @@ def pack_search(pack, queries: np.ndarray, filt: Optional[Filter],
         dev = pack.device
         active = pack.active_rows(t_lo, t_hi)
         qs = _card_queries(pack.mesh, torch.as_tensor(queries, device=dev))
+        count_h2d(registry, "scan_queries", queries.nbytes)
+        if pack._s_dev is None:           # re-uploaded after mark_dead
+            count_h2d(registry, "other", pack._s_host.nbytes)
         xs, ss, gs = pack.x, pack.s_dev, pack.gids_dev
 
         def launch(c):
             ids, dd = sharded_filtered_topk(qs[c], xs[c], ss[c], filt, kk,
-                                            metric=metric, m=pack.m)
+                                            metric=metric, m=pack.m,
+                                            registry=registry)
             return [_shard_lists(ids, dd, gs[c])]
-        (gl, dl), = _card_lists(pack.mesh, pack.n_rows, active, launch)
+        (gl, dl), = _card_lists(pack.mesh, pack.n_rows, active, launch,
+                                registry)
         out_g, out_d = _merge_lists(gl, dl, torch.as_tensor(active,
                                                             device=dev),
                                     k_out)
+        count_h2d(registry, "other", active.nbytes)
         block_ready((out_g, out_d))
     gids = np.full((b, k), -1, np.int64)
     dists = np.full((b, k), np.inf, np.float32)

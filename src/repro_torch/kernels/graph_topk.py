@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs.metrics import NULL_REGISTRY, count_h2d
 from . import ref
 from ._hopper import MAX_SMEM
 from .filtered_topk import FILTER_KINDS
@@ -384,7 +385,7 @@ class _MeshBlocks:
 
 def bucket_graph_topk(queries, bv, seeds, filt, k: int, *, m: int,
                       metric: str = "l2", ef: int = 64, width: int = 4,
-                      max_iters: int = 128
+                      max_iters: int = 128, registry=NULL_REGISTRY
                       ) -> Optional[Tuple[np.ndarray, np.ndarray, int]]:
     """Traverse one bucket's stitched graph block.
 
@@ -402,7 +403,8 @@ def bucket_graph_topk(queries, bv, seeds, filt, k: int, *, m: int,
     and B4 launches go to the cards owning the positions
     (:class:`_MeshBlocks`).
     B4's per-lane sum depends on ``d`` alone, so the traversal is the
-    single-card one bit for bit."""
+    single-card one bit for bit.  ``registry`` counts the copies of the
+    queries, the filter parameters and the seeds (``h2d_bytes_total``)."""
     from .ops import encode_filter
     if bv.nbrs is None or len(seeds) == 0:
         return None
@@ -412,11 +414,14 @@ def bucket_graph_topk(queries, bv, seeds, filt, k: int, *, m: int,
     kind, params = enc
     mesh = bv.mesh
     dev = mesh.home
-    q = torch.as_tensor(np.atleast_2d(np.asarray(queries, np.float32)),
-                        device=dev)
+    queries = np.atleast_2d(np.asarray(queries, np.float32))
+    seeds = np.asarray(seeds, np.int64)
+    q = torch.as_tensor(queries, device=dev)
     k = int(k)
     ef = max(int(ef), k)
     pj = torch.as_tensor(params, device=dev)
+    count_h2d(registry, "scan_queries", queries.nbytes)
+    count_h2d(registry, "other", params.nbytes + seeds.nbytes)
     block = bv.codes if bv.quantized else bv.x
     nbrs = [nb.reshape(-1, nb.shape[-1]) for nb in bv.nbrs]
     if mesh.size == 1:
@@ -437,7 +442,7 @@ def bucket_graph_topk(queries, bv, seeds, filt, k: int, *, m: int,
             return mb.score(pos, block, bv.s, bv.scales, kind, metric)
     g, dd, hops = _traverse(
         q, bv.block("gids").reshape(-1), nbr_at, score,
-        torch.as_tensor(np.asarray(seeds, np.int64), device=dev),
+        torch.as_tensor(seeds, device=dev),
         k, ef, int(width), int(max_iters))
     return (g.cpu().numpy().astype(np.int64),
             dd.cpu().numpy().astype(np.float32), hops)

@@ -15,6 +15,7 @@ import torch
 from ..core.filters import (BallFilter, BoxFilter, ComposeFilter, Filter,
                             IntervalFilter)
 from ..device import as_tensor, resolve_device
+from ..obs.metrics import NULL_REGISTRY, count_h2d
 from .distance import pairwise_dist_call
 from .filtered_topk import filtered_topk_call, filtered_topk_grouped_call
 from .quant_topk import quant_topk_call
@@ -155,7 +156,7 @@ def encode_filter(filt: Optional[Filter], m: int,
 
 
 def filtered_topk(q, x, s, filt: Optional[Filter], k: int,
-                  metric: str = "l2", device=None):
+                  metric: str = "l2", device=None, registry=NULL_REGISTRY):
     """Fused brute-force filtered top-k (exact, kernel B1): returns
     ``(ids [bq, k] int32 with -1 misses, dists [bq, k] ascending)`` as
     tensors on ``device`` (default: the card, or the inputs' device when
@@ -164,13 +165,14 @@ def filtered_topk(q, x, s, filt: Optional[Filter], k: int,
     A filter without a kernel encoding (polygons, 'or' compositions) is
     evaluated with the filter object; rows it rejects get ``PAD_META``
     metadata and the same kernel scans them with kind ``none``, so every
-    distance is computed one way whatever the filter.
+    distance is computed one way whatever the filter.  ``registry`` counts
+    the filter parameters' copy (``h2d_bytes_total``).
     """
     dev = resolve_device(device, q, x, s)
     q = as_tensor(q, dev, torch.float32)
     x = as_tensor(x, dev, torch.float32)
     s = as_tensor(s, dev, torch.float32)
-    kind, params, s = _encode_stack(filt, s, s.shape[1])
+    kind, params, s = _encode_stack(filt, s, s.shape[1], registry)
     kpad = next_pow2(max(k, 8))
     dd, ids = filtered_topk_call(q[None], x[None], s[None], params[None],
                                  kind, kpad, metric=metric)
@@ -214,11 +216,13 @@ def block_layout(mode: str, rows: int, cap: int, d: int, m: int
     return out
 
 
-def _encode_stack(filt: Optional[Filter], ss: torch.Tensor, m: int):
+def _encode_stack(filt: Optional[Filter], ss: torch.Tensor, m: int,
+                  registry=NULL_REGISTRY):
     """Filter -> ``(kind, params tensor, metadata stack)``.  A filter
     without a kernel encoding is evaluated with the filter object and the
     rows it rejects get ``PAD_META`` (kind ``none``): the single route,
-    so every distance comes from the same kernel."""
+    so every distance comes from the same kernel.  The parameters' copy
+    to the device counts in ``registry``."""
     mp = max(m, 2)
     enc = encode_filter(filt, m, mpad=mp)
     if enc is None:
@@ -226,21 +230,24 @@ def _encode_stack(filt: Optional[Filter], ss: torch.Tensor, m: int):
         ss = torch.where(ok[..., None], ss, torch.full_like(ss, PAD_META))
         enc = encode_filter(None, m, mpad=mp)
     kind, params = enc
+    count_h2d(registry, "other", params.nbytes)
     return kind, as_tensor(params, ss.device), ss
 
 
 def sharded_filtered_topk(q, xs, ss, filt: Optional[Filter], k: int,
-                          metric: str = "l2", m: Optional[int] = None):
+                          metric: str = "l2", m: Optional[int] = None,
+                          registry=NULL_REGISTRY):
     """Shard-parallel fused filtered top-k: kernel B1 over a ``[g, n, d]``
     / ``[g, n, m]`` stack of ``g`` equal-capacity shard rows (the shard
     axis is B1's batch axis), one launch for the whole stack.  Ragged
     rows are padded with ``PAD_META`` metadata, which fails every
     predicate.  Returns ``(ids [g, bq, k], dists [g, bq, k])`` with
-    shard-local ids (``-1`` misses) ascending by (distance, id)."""
+    shard-local ids (``-1`` misses) ascending by (distance, id).
+    ``registry`` counts the filter parameters' copy."""
     dev = xs.device
     q = as_tensor(q, dev, torch.float32)
     m = ss.shape[2] if m is None else int(m)
-    kind, params, ss = _encode_stack(filt, ss, m)
+    kind, params, ss = _encode_stack(filt, ss, m, registry)
     kpad = next_pow2(max(int(k), 8))
     dd, ids = filtered_topk_call(q[None], xs, ss, params[None], kind, kpad,
                                  metric=metric)
@@ -248,7 +255,8 @@ def sharded_filtered_topk(q, xs, ss, filt: Optional[Filter], k: int,
 
 
 def sharded_filtered_topk_grouped(groups, xs, ss, metric: str = "l2",
-                                  m: Optional[int] = None):
+                                  m: Optional[int] = None,
+                                  registry=NULL_REGISTRY):
     """Heterogeneous-filter shard-stack scan: several ``(q, filt, k)``
     request groups against ONE ``[g, n, d]`` / ``[g, n, m]`` shard stack.
 
@@ -265,7 +273,8 @@ def sharded_filtered_topk_grouped(groups, xs, ss, metric: str = "l2",
     ``sharded_filtered_topk(q_i, xs, ss, filt_i, k_i)`` returns alone: the
     kernel computes every query row independently, and a candidate's
     distance and the (distance, id) list order do not depend on the
-    launch's grouping or splits."""
+    launch's grouping or splits.  ``registry`` counts the filter
+    parameters' copies."""
     groups = list(groups)
     dev = xs.device
     m = ss.shape[2] if m is None else int(m)
@@ -276,7 +285,8 @@ def sharded_filtered_topk_grouped(groups, xs, ss, metric: str = "l2",
         enc = encode_filter(filt, m, mpad=mp)
         if enc is None:
             out[i] = sharded_filtered_topk(q, xs, ss, filt, int(k),
-                                           metric=metric, m=m)
+                                           metric=metric, m=m,
+                                           registry=registry)
             continue
         kind, params = enc
         kpad = next_pow2(max(int(k), 8))
@@ -285,7 +295,8 @@ def sharded_filtered_topk_grouped(groups, xs, ss, metric: str = "l2",
         if len(members) == 1:
             i, q, _, k = members[0]
             out[i] = sharded_filtered_topk(q, xs, ss, groups[i][1], k,
-                                           metric=metric, m=m)
+                                           metric=metric, m=m,
+                                           registry=registry)
             continue
         qs = [as_tensor(q, dev, torch.float32) for _, q, _, _ in members]
         bq = max(q.shape[0] for q in qs)
@@ -293,7 +304,9 @@ def sharded_filtered_topk_grouped(groups, xs, ss, metric: str = "l2",
                          device=dev)
         for gi, q in enumerate(qs):
             qp[gi, :q.shape[0]] = q
-        params = as_tensor(np.stack([p for _, _, p, _ in members]), dev)
+        stacked = np.stack([p for _, _, p, _ in members])
+        count_h2d(registry, "other", stacked.nbytes)
+        params = as_tensor(stacked, dev)
         dd, ids = filtered_topk_grouped_call(qp, xs, ss, params, kind, kpad,
                                              metric=metric)
         for gi, (i, _, _, k) in enumerate(members):
@@ -304,7 +317,8 @@ def sharded_filtered_topk_grouped(groups, xs, ss, metric: str = "l2",
 
 def sharded_quant_filtered_topk(q, codes, ss, xsq, scales,
                                 filt: Optional[Filter], k: int,
-                                metric: str = "l2", m: Optional[int] = None):
+                                metric: str = "l2", m: Optional[int] = None,
+                                registry=NULL_REGISTRY):
     """Shard-parallel asymmetric-distance filtered top-k over int8 codes
     (kernel B3).  ``codes [g, n, d]`` int8, ``ss [g, n, m]``, ``xsq [g,
     n]``, ``scales [g, d]``: each shard row's scales are folded into the
@@ -312,11 +326,12 @@ def sharded_quant_filtered_topk(q, codes, ss, xsq, scales,
     is only read at int8.  For L2 the kernel's partial ``xsq − 2·ip`` gets
     ``‖q‖²`` added here, which makes the distances those to the
     dequantized vectors.  Returns ``(ids [g, bq, k], dists [g, bq, k])``
-    — an over-fetched candidate list for the exact rerank."""
+    — an over-fetched candidate list for the exact rerank.  ``registry``
+    counts the filter parameters' copy."""
     dev = codes.device
     q = as_tensor(q, dev, torch.float32)
     m = ss.shape[2] if m is None else int(m)
-    kind, params, ss = _encode_stack(filt, ss, m)
+    kind, params, ss = _encode_stack(filt, ss, m, registry)
     qn = torch.sum(q * q, dim=1)
     qs = q[None, :, :] * scales[:, None, :]          # scale-folded queries
     kpad = next_pow2(max(int(k), 8))

@@ -31,9 +31,9 @@ import re
 import threading
 from typing import Dict, Optional
 
-__all__ = ["NULL_METRIC", "NULL_REGISTRY", "SUBBUCKETS", "BucketStats",
-           "Counter", "Gauge", "Histogram", "MetricsRegistry", "StreamObs",
-           "json_sanitize", "prometheus_text"]
+__all__ = ["H2D_SITES", "NULL_METRIC", "NULL_REGISTRY", "SUBBUCKETS",
+           "BucketStats", "Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "StreamObs", "count_h2d", "json_sanitize", "prometheus_text"]
 
 SUBBUCKETS = 4                   # histogram buckets per octave (see above)
 _V0 = 1e-6                       # smallest resolvable histogram value
@@ -256,6 +256,24 @@ class MetricsRegistry:
 
 
 NULL_REGISTRY = MetricsRegistry(enabled=False)
+
+# Where the query path copies host arrays to its device, the label of
+# ``h2d_bytes_total``: the sealed scan's (and traversal's) queries, the
+# int8 rerank's queries and looked-up fp32 rows, the delta scan (queries,
+# frozen rows, metadata), a cold bucket's blocks, and the rest (active
+# masks, rerank positions, filter parameters, traversal seeds, a mesh's
+# row order).  Each copy is counted where it is made, from the array
+# copied.
+H2D_SITES = ("scan_queries", "rerank_queries", "rerank_rows", "delta",
+             "cold_stage", "other")
+_H2D_NAMES = {s: f'h2d_bytes_total{{site="{s}"}}' for s in H2D_SITES}
+
+
+def count_h2d(registry: MetricsRegistry, site: str, nbytes: int) -> None:
+    """Add ``nbytes`` to ``h2d_bytes_total{site=...}``: counted where the
+    copy is made, whatever the device's type (a CPU "copy" counts what a
+    card would receive)."""
+    registry.counter(_H2D_NAMES[site]).inc(int(nbytes))
 
 
 class BucketStats:

@@ -10,6 +10,17 @@ make the numbers honest under CUDA's asynchronous launches:
 * every span wraps ``torch.profiler.record_function``, so the same span
   names line up with the kernels in a captured ``torch.profiler`` trace.
 
+What a span records: its ``name``, its ``attrs``, its children (the spans
+it caused), its duration ``ms`` on the monotonic ``time.perf_counter``,
+and its ``start_ns`` / ``end_ns`` read from ``time.time_ns()`` just
+inside its ``record_function`` range, around the ``ms`` reads.  That
+wall clock is the profiler's Chrome trace's: an event's ``ts`` (us) is
+``time.time_ns()`` less the trace's ``baseTimeNanoseconds``, so a span
+tree lays over a device trace; ``ms`` does not move if the wall clock is
+stepped.  The root of a :class:`QueryTrace` carries the batch's ``id``
+(``SegmentManager.query``: the manager's running count of query
+batches), which every span of its tree shares.
+
 The disabled path is a set of shared singletons (:data:`NULL_TRACE` /
 its no-op span): opening a span on a disabled trace allocates nothing
 and touches no clocks, which is what keeps tracing per-query opt-in
@@ -57,7 +68,7 @@ class Span:
     """One timed node of a trace tree (use via ``QueryTrace.span``)."""
 
     __slots__ = ("name", "attrs", "children", "_t0", "duration_ms",
-                 "_annotation")
+                 "start_ns", "end_ns", "_annotation")
 
     def __init__(self, name: str, attrs: Optional[dict] = None):
         self.name = name
@@ -65,6 +76,8 @@ class Span:
         self.children: List[Span] = []
         self._t0 = 0.0
         self.duration_ms = 0.0
+        self.start_ns = 0
+        self.end_ns = 0
         self._annotation = None
 
     def annotate(self, **attrs) -> None:
@@ -72,24 +85,28 @@ class Span:
         self.attrs.update(attrs)
 
     def start(self) -> "Span":
-        """Open the profiler annotation and start the wall clock."""
+        """Open the profiler annotation and start the clocks."""
         self._annotation = torch.profiler.record_function(self.name)
         self._annotation.__enter__()
+        self.start_ns = time.time_ns()
         self._t0 = time.perf_counter()
         return self
 
     def stop(self) -> None:
-        """Stop the wall clock and close the profiler annotation.  Callers must
+        """Stop the clocks and close the profiler annotation.  Callers must
         :func:`block_ready` device results first — that ordering is the
         whole point of the tracer."""
         self.duration_ms = (time.perf_counter() - self._t0) * 1e3
+        self.end_ns = time.time_ns()
         if self._annotation is not None:
             self._annotation.__exit__(None, None, None)
             self._annotation = None
 
     def to_dict(self) -> dict:
-        """JSON-safe ``{name, ms, attrs?, spans?}`` subtree."""
-        out = {"name": self.name, "ms": round(self.duration_ms, 4)}
+        """JSON-safe ``{name, ms, start_ns, end_ns, attrs?, spans?}``
+        subtree."""
+        out = {"name": self.name, "ms": round(self.duration_ms, 4),
+               "start_ns": self.start_ns, "end_ns": self.end_ns}
         if self.attrs:
             out["attrs"] = dict(self.attrs)
         if self.children:
@@ -120,13 +137,15 @@ class QueryTrace:
     """Span tree for one query; the root span times the whole call.
 
     Created by ``SegmentManager.query(..., return_trace=True)`` (or
-    directly) and threaded through ``streaming.query.query_segments``.  :meth:`finish` stops
-    the root; :meth:`to_dict` exports the tree.
+    directly) and threaded through ``streaming.query.query_segments``.
+    ``id`` (None: none) names the batch the tree belongs to.  :meth:`finish`
+    stops the root; :meth:`to_dict` exports the tree.
     """
 
     enabled = True
 
-    def __init__(self, name: str = "query"):
+    def __init__(self, name: str = "query", id: Optional[int] = None):
+        self.id = id
         self.root = Span(name)
         self._stack: List[Span] = [self.root]
         self.root.start()
@@ -149,8 +168,11 @@ class QueryTrace:
         return self.root.duration_ms
 
     def to_dict(self) -> dict:
-        """JSON-safe span tree (root node)."""
-        return self.root.to_dict()
+        """JSON-safe span tree (root node, with ``id`` when it has one)."""
+        out = self.root.to_dict()
+        if self.id is not None:
+            out["id"] = self.id
+        return out
 
 
 class _NullSpan:

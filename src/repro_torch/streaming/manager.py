@@ -60,6 +60,7 @@ device block across the groups (one kernel launch per filter class).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import os
 import threading
@@ -231,6 +232,8 @@ class SegmentManager:
         # Most recent {cap: PlanDecision} of the cost planner
         # (read_path != "scan" only).
         self.last_plan = None
+        # running count of query batches: a traced batch's id
+        self._batch_seq = itertools.count()
         self.store = PointStore(d, m, chunk=cfg.store_chunk)
         self._alive = np.zeros(1024, bool)
         self.now = -math.inf                        # event-time watermark
@@ -1076,16 +1079,18 @@ class SegmentManager:
         host ``(gids [b, k] int64, dists [b, k] fp32)``.
 
         ``return_trace`` appends a finished
-        :class:`~repro_torch.obs.trace.QueryTrace` to the result tuple.
-        ``deadline_ms`` (forwarded via ``**kw``) bounds this call's time
-        budget."""
+        :class:`~repro_torch.obs.trace.QueryTrace` to the result tuple,
+        whose ``id`` is the number of batches this manager was asked
+        before this one.  ``deadline_ms`` (forwarded via ``**kw``) bounds
+        this call's time budget."""
         from .query import query_segments
+        batch = next(self._batch_seq)
         if not return_trace:
             return query_segments(self, queries, filt, k=k, ef=ef,
                                   return_stats=return_stats, **kw)
         from ..obs.trace import QueryTrace
         from .resilience import QueryResult
-        trace = QueryTrace("query")
+        trace = QueryTrace("query", id=batch)
         out = query_segments(self, queries, filt, k=k, ef=ef,
                              return_stats=return_stats, trace=trace, **kw)
         return QueryResult(out + (trace.finish(),), degraded=out.degraded,

@@ -138,7 +138,7 @@ def _plan_pack(manager, pack, filt, rp, t_lo, t_hi, obs, registry,
 
 
 def _scan_buckets(manager, pack, queries, filt, k, t_lo, t_hi, metric,
-                  trace, observe, on_cold=None):
+                  trace, observe, on_cold=None, registry=NULL_REGISTRY):
     """Scan a ``PackView``: exact blocks for fp32 buckets, one reranked
     block for quantized ones; cold buckets stream through the same
     kernels (``on_cold`` counts them).  Returns ``(blocks_g,
@@ -152,11 +152,12 @@ def _scan_buckets(manager, pack, queries, filt, k, t_lo, t_hi, metric,
         gg, dd = pack_search(pack, queries, filt, k, t_lo=t_lo, t_hi=t_hi,
                              metric=metric, lookup=manager.get_points,
                              rerank_multiple=manager.cfg.rerank_multiple,
-                             trace=trace, observe=observe, on_cold=on_cold)
+                             trace=trace, observe=observe, on_cold=on_cold,
+                             registry=registry)
         return [gg], [dd]
     out = pack_search_blocks(pack, queries, filt, k, t_lo=t_lo, t_hi=t_hi,
                              metric=metric, trace=trace, observe=observe,
-                             on_cold=on_cold)
+                             on_cold=on_cold, registry=registry)
     return [g for g, _ in out], [d for _, d in out]
 
 
@@ -196,13 +197,15 @@ def _graph_search_blocks(manager, pack, buckets, queries, filt, k,
         seeds = bucket_graph_seeds(bv, t_lo, t_hi)
         with trace.span("bucket_graph", cap=bv.cap, seeds=int(len(seeds))):
             out = bucket_graph_topk(
-                queries, stage_bucket(bv, pack.device), seeds, filt, kk,
-                m=pack.m, metric=metric, ef=max(cfg.graph_ef, kk),
-                width=cfg.graph_width, max_iters=cfg.graph_max_iters)
+                queries, stage_bucket(bv, pack.device, registry), seeds,
+                filt, kk, m=pack.m, metric=metric, ef=max(cfg.graph_ef, kk),
+                width=cfg.graph_width, max_iters=cfg.graph_max_iters,
+                registry=registry)
         if out is None:                       # planner gate raced/failed
             sub = dataclasses.replace(pack, buckets=(bv,))
             gg, dd = _scan_buckets(manager, sub, queries, filt, k, t_lo,
-                                   t_hi, metric, trace, observe, on_cold)
+                                   t_hi, metric, trace, observe, on_cold,
+                                   registry)
             blocks_g.extend(gg)
             blocks_d.extend(dd)
             continue
@@ -219,7 +222,8 @@ def _graph_search_blocks(manager, pack, buckets, queries, filt, k,
                         candidates=int(sum(g.shape[1] for g in cand_g))):
             gg, dd = rerank_exact(queries, np.concatenate(cand_g, axis=1),
                                   k, manager.get_points, metric=metric,
-                                  device=manager.device)
+                                  device=manager.device, trace=trace,
+                                  registry=registry)
         blocks_g.append(gg)
         blocks_d.append(dd)
     return blocks_g, blocks_d
@@ -295,7 +299,8 @@ def query_segments(manager, queries: np.ndarray, filt: Optional[Filter],
         if delta.t_max >= t_lo and delta.t_min <= t_hi:
             with trace.span("delta_scan", rows=delta.n_live):
                 t0 = time.perf_counter()
-                ids, dd = delta.query(queries, filt, k, metric=metric)
+                ids, dd = delta.query(queries, filt, k, metric=metric,
+                                      registry=registry)
                 block_ready((ids, dd))
                 st.search_ms = (time.perf_counter() - t0) * 1e3
             blocks_g.append(ids)
@@ -391,19 +396,19 @@ def query_segments(manager, queries: np.ndarray, filt: Optional[Filter],
                         sub = dataclasses.replace(scan_pack, buckets=(bv,))
                         gg, dd = _scan_buckets(manager, sub, queries, filt,
                                                k, t_lo, t_hi, metric, trace,
-                                               observe, on_cold)
+                                               observe, on_cold, registry)
                         blocks_g.extend(gg)
                         blocks_d.extend(dd)
                 elif isinstance(pack, PackView):
                     gg, dd = _scan_buckets(manager, scan_pack, queries, filt,
                                            k, t_lo, t_hi, metric, trace,
-                                           observe, on_cold)
+                                           observe, on_cold, registry)
                     blocks_g.extend(gg)
                     blocks_d.extend(dd)
                 else:                     # monolithic pack
                     gg, dd = pack_search(pack, queries, filt, k, t_lo=t_lo,
                                          t_hi=t_hi, metric=metric,
-                                         trace=trace)
+                                         trace=trace, registry=registry)
                     blocks_g.append(gg)
                     blocks_d.append(dd)
                 if graph_bvs:
@@ -464,8 +469,10 @@ def query_segments(manager, queries: np.ndarray, filt: Optional[Filter],
         return QueryResult(out, degraded=bool(reasons), reasons=reasons)
 
     with trace.span("merge", blocks=len(blocks_g)):
-        out_g, out_d = merge_topk(blocks_g, blocks_d, k)
-        out_g, out_d = _alive_filter(manager, out_g, out_d)
+        with trace.span("merge_topk"):
+            out_g, out_d = merge_topk(blocks_g, blocks_d, k)
+        with trace.span("alive_filter"):
+            out_g, out_d = _alive_filter(manager, out_g, out_d)
     registry.histogram("query_ms").observe(
         (time.perf_counter() - t_all) * 1e3)
     out = (out_g, out_d, stats) if return_stats else (out_g, out_d)
@@ -561,7 +568,7 @@ def query_segments_grouped(manager, groups, trace=None, observe_group=None):
             if delta.t_max >= t_lo and delta.t_min <= t_hi:
                 with trace.span("delta_scan", rows=delta.n_live, group=gi):
                     ids, dd = delta.query(q, groups[gi].filt, groups[gi].k,
-                                          metric=metric)
+                                          metric=metric, registry=registry)
                     block_ready((ids, dd))
                 blocks_g[gi].append(ids)
                 blocks_d[gi].append(dd)
@@ -592,7 +599,7 @@ def query_segments_grouped(manager, groups, trace=None, observe_group=None):
                     on_expired=lambda gi, n:
                         _degrade(gi, "deadline_sealed_scan", n),
                     fault=lambda: manager._fault("query.bucket"),
-                    observe_group=observe_group)
+                    observe_group=observe_group, registry=registry)
             for gi, bl in enumerate(per):
                 for gg, dd in bl:
                     blocks_g[gi].append(gg)
@@ -612,8 +619,10 @@ def query_segments_grouped(manager, groups, trace=None, observe_group=None):
             od = np.full((b, g.k), np.inf, np.float32)
         else:
             with trace.span("merge", blocks=len(blocks_g[gi]), group=gi):
-                og, od = merge_topk(blocks_g[gi], blocks_d[gi], g.k)
-                og, od = _alive_filter(manager, og, od)
+                with trace.span("merge_topk"):
+                    og, od = merge_topk(blocks_g[gi], blocks_d[gi], g.k)
+                with trace.span("alive_filter"):
+                    og, od = _alive_filter(manager, og, od)
         out.append(QueryResult((og, od), degraded=bool(reasons[gi]),
                                reasons=reasons[gi]))
     registry.histogram("query_ms").observe(

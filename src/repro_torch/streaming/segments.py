@@ -19,6 +19,7 @@ import torch
 from ..core import CubeGraphConfig, CubeGraphIndex, Filter
 from ..device import resolve_device
 from ..kernels import filtered_topk
+from ..obs.metrics import NULL_REGISTRY, count_h2d
 
 __all__ = ["DeltaBuffer", "DeltaSnapshot", "PointStore", "SealedSegment",
            "SegmentGraph", "SegmentQueryStats", "grow_rows",
@@ -177,18 +178,25 @@ class SegmentQueryStats:
 
 def scan_filtered_topk(queries: np.ndarray, xl: np.ndarray, sl: np.ndarray,
                        gl: np.ndarray, filt: Optional[Filter], k: int,
-                       metric: str = "l2", device=None
+                       metric: str = "l2", device=None,
+                       registry=NULL_REGISTRY
                        ) -> Tuple[np.ndarray, np.ndarray]:
     """Exact filtered top-k (kernel B1 on ``device``) over copied live rows
     -> padded host global-id blocks ``(gids [b, k], dists [b, k])`` — the
     shared scan behind both :class:`DeltaBuffer` and :class:`DeltaSnapshot`.
+    ``registry`` counts the copies to the device: the queries, rows and
+    metadata under ``h2d_bytes_total{site="delta"}``, the filter's
+    parameters under ``other``.
     """
     b = np.atleast_2d(queries).shape[0]
     if len(gl) == 0:
         return (np.full((b, k), -1, np.int64),
                 np.full((b, k), np.inf, np.float32))
-    ids, dd = filtered_topk(np.atleast_2d(queries), xl, sl, filt,
-                            min(k, len(gl)), metric=metric, device=device)
+    q, xl, sl = (np.asarray(a, np.float32)
+                 for a in (np.atleast_2d(queries), xl, sl))
+    count_h2d(registry, "delta", q.nbytes + xl.nbytes + sl.nbytes)
+    ids, dd = filtered_topk(q, xl, sl, filt, min(k, len(gl)), metric=metric,
+                            device=device, registry=registry)
     ids = ids.cpu().numpy()
     dd = dd.cpu().numpy().astype(np.float32)
     out_i = np.full((b, k), -1, np.int64)
@@ -219,10 +227,13 @@ class DeltaSnapshot:
         return len(self.gids)
 
     def query(self, queries: np.ndarray, filt: Optional[Filter], k: int,
-              metric: str = "l2") -> Tuple[np.ndarray, np.ndarray]:
-        """Exact filtered top-k over the frozen rows (global ids)."""
+              metric: str = "l2", registry=NULL_REGISTRY
+              ) -> Tuple[np.ndarray, np.ndarray]:
+        """Exact filtered top-k over the frozen rows (global ids); the
+        copies to the device count in ``registry``."""
         return scan_filtered_topk(queries, self.x, self.s, self.gids, filt,
-                                  k, metric=metric, device=self.device)
+                                  k, metric=metric, device=self.device,
+                                  registry=registry)
 
     def stats(self, segment_id: int = -1) -> SegmentQueryStats:
         """Fresh per-query accounting row for this snapshot."""

@@ -9,6 +9,7 @@ order).  ``recall`` keeps the reference's semantics: an empty ground truth
 counts 0, so legs with no qualifying point assert parity, not a bound.
 """
 import dataclasses
+import gc
 import json
 import threading
 
@@ -243,6 +244,212 @@ def test_stats_trace_and_deadline():
     st = mgr.stats()
     json.dumps(st, allow_nan=False)
     assert st["obs"]["metrics"]["counters"]["query_batches_total"] == 2
+
+
+def _spans(node, name):
+    """Every span called ``name`` in a trace tree, in start order."""
+    out = [node] if node.get("name") == name else []
+    for c in node.get("spans", ()):
+        out += _spans(c, name)
+    return out
+
+
+def _children(node):
+    return [c["name"] for c in node.get("spans", ())]
+
+
+def _covered(node):
+    """Share of a span's ms its children account for."""
+    return sum(c["ms"] for c in node["spans"]) / node["ms"]
+
+
+def _nested(node):
+    for c in node.get("spans", ()):
+        assert node["start_ns"] <= c["start_ns"] <= c["end_ns"] \
+            <= node["end_ns"], (node["name"], c["name"])
+        _nested(c)
+
+
+def _counters(mgr):
+    return dict(mgr.obs.registry.snapshot()["counters"])
+
+
+def _h2d(diff, site):
+    return diff.get(f'h2d_bytes_total{{site="{site}"}}', 0)
+
+
+def _span_manager(quantize, n_shards):
+    """3,200 rows ingested in batches of 700, sealed every 500: six
+    segments in the pack, 200 rows left in the delta buffer."""
+    x, s = _timed_dataset(3200)
+    mgr = ts.SegmentManager(24, 3, ts.StreamConfig(
+        time_dim=2, seal_max_points=500, seal_max_age=1e9,
+        n_shards=n_shards, quantize=quantize, index_cfg=T_IDX),
+        device="cpu")
+    for lo in range(0, 3200, 700):
+        mgr.ingest(x[lo:lo + 700], s[lo:lo + 700])
+        mgr.maintenance()
+    box = tc.BoxFilter(lo=np.array([0.1, 0.1, 0.2], np.float32),
+                       hi=np.array([0.9, 0.9, 1.0], np.float32))
+    return mgr, _queries(x, b=1200), box
+
+
+@pytest.mark.parametrize("quantize,n_shards", [
+    (None, 1), (None, 2), ("int8", 1), ("int8", 2)])
+def test_query_spans_and_copy_counters(quantize, n_shards):
+    """The spans inside the sealed scan, the int8 rerank and the merge:
+    present, nested, covering their parents; answers bit for bit those of
+    an untraced query; ``h2d_bytes_total`` per site and the rerank's
+    counters equal what the shapes and the candidates give."""
+    k, d, m = 50, 24, 3
+    mgr, q, box = _span_manager(quantize, n_shards)
+    assert mgr.delta.n_live == 200
+    plain = mgr.query(q, box, k=k)               # untraced, warms the path
+    looked_up = []
+    get_points = mgr.get_points
+
+    def spy(gids):
+        looked_up.append(len(gids))
+        return get_points(gids)
+    mgr.get_points = spy
+    before = _counters(mgr)
+    g, dd, trace = mgr.query(q, box, k=k, return_trace=True)
+    after = _counters(mgr)
+    diff = {n: after[n] - before.get(n, 0) for n in after}
+    assert np.array_equal(plain[0], g) and np.array_equal(plain[1], dd)
+
+    tree = trace.to_dict()
+    assert tree["id"] == 1                       # the manager's 2nd batch
+    _nested(tree)
+    assert {"snapshot", "delta_scan", "sealed_scan", "merge"} \
+        <= set(_children(tree))
+    sealed, = _spans(tree, "sealed_scan")
+    names = _children(sealed)
+    assert names[0] == "queries_upload"
+    dispatches = _spans(sealed, "bucket_dispatch")
+    assert dispatches and names[1:len(dispatches) + 1] == \
+        ["bucket_dispatch"] * len(dispatches)
+    for bd in dispatches:
+        assert _children(bd) == ["bucket_fetch"]
+    merge, = _spans(tree, "merge")
+    assert _children(merge) == ["merge_topk", "alive_filter"]
+    assert _covered(merge) >= 0.95, merge
+
+    b = q.shape[0]
+    delta, = _spans(tree, "delta_scan")
+    n_delta = delta["attrs"]["rows"]
+    assert _h2d(diff, "delta") == 4 * (b * d + n_delta * (d + m))
+    assert _h2d(diff, "scan_queries") == q.nbytes
+    # the delta scan's filter block [4, m] fp32, then a bucket's active
+    # mask (a byte a row) and its filter, per launch
+    other = 16 * m + sum(bd["attrs"]["rows"] + 16 * m for bd in dispatches)
+    assert _h2d(diff, "cold_stage") == 0
+    if quantize is None:
+        assert names[-1] == "bucket_dispatch"
+        assert not _spans(tree, "rerank_fp32") and not looked_up
+        assert diff.get("rerank_candidates_total", 0) == 0
+        assert _h2d(diff, "other") == other
+        return
+    rerank, = _spans(sealed, "rerank_fp32")
+    assert names[-1] == "rerank_fp32"
+    assert _children(rerank) == ["rerank_lookup", "rerank_upload",
+                                 "rerank_score", "rerank_topk"]
+    assert _covered(rerank) >= 0.95, rerank
+    n_cand = sum(bd["attrs"]["candidates"] for bd in dispatches)
+    lookup, = _spans(rerank, "rerank_lookup")
+    assert looked_up == [lookup["attrs"]["rows"]]
+    assert diff["rerank_candidates_total"] == n_cand \
+        == lookup["attrs"]["candidates"]
+    assert diff["rerank_rows_total"] == looked_up[0] <= n_cand
+    assert _h2d(diff, "rerank_queries") == q.nbytes
+    assert _h2d(diff, "rerank_rows") == looked_up[0] * d * 4
+    # the rerank's positions [b, overfetch] int32 and its filter block
+    other += b * rerank["attrs"]["overfetch"] * 4 + 32
+    assert _h2d(diff, "other") == other
+
+
+def test_untraced_query_opens_no_span(monkeypatch):
+    """Tracing off, the query path creates no span, and the disabled
+    spans and the counters it calls allocate nothing that stays."""
+    import tracemalloc
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs.metrics import count_h2d
+    mgr, q, box = _span_manager("int8", 2)
+    made = []
+    init = obs_trace.Span.__init__
+
+    def counting(self, *a, **kw):
+        made.append(a)
+        init(self, *a, **kw)
+    monkeypatch.setattr(obs_trace.Span, "__init__", counting)
+    mgr.query(q[:64], box, k=10)
+    before = _counters(mgr)
+    mgr.query(q[:64], box, k=10)
+    assert not made
+    after = _counters(mgr)
+    assert after['h2d_bytes_total{site="rerank_queries"}'] \
+        - before['h2d_bytes_total{site="rerank_queries"}'] == q[:64].nbytes
+    reg = mgr.obs.registry
+    trace = obs_trace.NULL_TRACE
+
+    def disabled_calls():
+        for name in ("rerank_lookup", "rerank_upload", "rerank_score",
+                     "rerank_topk", "merge_topk", "alive_filter",
+                     "queries_upload", "bucket_fetch"):
+            with trace.span(name) as sp:
+                if trace.enabled:
+                    sp.annotate(rows=1)
+        count_h2d(reg, "other", 48)
+        reg.counter("rerank_rows_total").inc(3)
+    disabled_calls()
+    tracemalloc.start()
+    snap0 = tracemalloc.take_snapshot()
+    for _ in range(1000):
+        disabled_calls()
+    snap1 = tracemalloc.take_snapshot()
+    tracemalloc.stop()
+    grown = sum(st.size_diff for st in snap1.compare_to(snap0, "filename")
+                if st.size_diff > 0 and "repro_torch" in
+                st.traceback[0].filename)
+    assert grown < 1024, f"the disabled path kept {grown} bytes"
+    assert not made
+
+
+def test_span_clock_matches_the_profiler(tmp_path):
+    """A span's ``start_ns`` / ``end_ns`` lie within 1 ms of its
+    ``record_function`` range in an exported CPU profile (Chrome trace:
+    ``ts`` is microseconds after ``baseTimeNanoseconds``)."""
+    from torch.profiler import ProfilerActivity, profile
+    mgr, q, box = _span_manager("int8", 1)
+    mgr.query(q[:64], box, k=10)
+    gc.disable()                   # no collector's pause between the two
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            tree = mgr.query(q[:64], box, k=10,
+                             return_trace=True)[-1].to_dict()
+    finally:
+        gc.enable()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    data = json.loads(path.read_text())
+    base = int(data.get("baseTimeNanoseconds", 0))
+    ranges: dict = {}
+    for e in data["traceEvents"]:
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation":
+            a = base + float(e["ts"]) * 1e3
+            ranges.setdefault(e["name"], []).append(
+                (a, a + float(e["dur"]) * 1e3))
+    seen = 0
+    for name in ("query", "sealed_scan", "bucket_dispatch", "rerank_fp32",
+                 "rerank_lookup", "rerank_upload", "rerank_score",
+                 "rerank_topk", "merge", "merge_topk", "alive_filter"):
+        spans = _spans(tree, name)
+        assert spans and len(spans) == len(ranges[name]), name
+        for sp, (a, b) in zip(spans, sorted(ranges[name])):
+            assert abs(sp["start_ns"] - a) < 1e6, (name, sp["start_ns"], a)
+            assert abs(sp["end_ns"] - b) < 1e6, (name, sp["end_ns"], b)
+            seen += 1
+    assert seen >= 11
 
 
 @pytest.mark.parametrize("kw,item", [
